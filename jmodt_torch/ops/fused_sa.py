@@ -1,0 +1,141 @@
+"""Eval-time fused single-scale set abstraction (counterpart of
+`jmodt_tpu/ops/fused_sa.py`).
+
+With catf = concat[xyz, feats] per point and the eval BatchNorm folded into
+each Dense, layer 1 of the grouped MLP is hoisted before the gather:
+
+    h1 = relu(gather(catf @ W1)[b, m, s] + b1 - (new_xyz @ W1[:3])[b, m])
+
+and the remaining layers and the max over the S samples follow.  The two
+hoisted products are plain `torch.matmul`.  On a CUDA tensor the rest runs
+in K4 (`jmodt_torch/csrc/grouped_gather_mlp.cu`, replaces
+`jmodt_tpu/ops/pallas/grouped_gather_mlp.py::grouped_gather_mlp_max`); on a
+CPU tensor in `grouped_gather_mlp_max_plain`.  Always float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from jmodt_torch.ops import kernels
+from jmodt_torch.ops.grouping import group_points_fl
+
+_BN_EPS = 1e-5
+# K4 works on 64-row tiles (centres x samples) and 4 extra MLP layers at most
+_K4_ROWS = 64
+_K4_MAX_LAYERS = 4
+_K4_SMEM_LIMIT = 232448
+
+Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def fold_pointwise_mlp(mlp) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+    """Fold a `PointwiseMLP`'s Dense(+BatchNorm) stack into per-layer
+    (W (Cin, Cout) f32, b (Cout,) f32)."""
+    out = []
+    for layer in mlp.layers:
+        w = layer.dense.weight.float().t()
+        if layer.bn is not None:
+            bn = layer.bn
+            s = bn.weight.float() * torch.rsqrt(bn.running_var.float()
+                                                + _BN_EPS)
+            b = bn.bias.float() - bn.running_mean.float() * s
+            w = w * s[None, :]
+        else:
+            b = layer.dense.bias.float()
+        out.append((w.contiguous(), b.contiguous()))
+    return tuple(out)
+
+
+def grouped_gather_mlp_max_plain(feats1: torch.Tensor, idx: torch.Tensor,
+                                 cxw: torch.Tensor, b1: torch.Tensor,
+                                 layers: Layers) -> torch.Tensor:
+    """max_s relu(...relu(gather(feats1)[b,m,s] + b1 - cxw[b,m]) @ W2 + b2...)
+    with the grouped intermediates as tensors: (B, M, C_last) f32."""
+    g = group_points_fl(feats1, idx)                       # (B, M, S, C1)
+    h = torch.relu((g + b1) - cxw[:, :, None, :])
+    for w, b in layers:
+        h = torch.relu(h @ w + b)
+    return h.amax(dim=2)
+
+
+def _k4_smem_bytes(s: int, widths: Sequence[int]) -> int:
+    """Shared memory K4 needs: two activation buffers of 64 rows (+4 pad) x
+    the widest layer input at even / odd depth, one 32 x 64 weight tile and
+    the (64 / S) x 64 output tile."""
+    ins = widths[:-1]
+    even = max(ins[0::2])
+    odd = max(ins[1::2], default=0)
+    rs = _K4_ROWS + 4
+    return 4 * (rs * (even + odd) + 32 * 64 + (_K4_ROWS // s) * 64)
+
+
+def grouped_gather_mlp_max(feats1: torch.Tensor, idx: torch.Tensor,
+                           cxw: torch.Tensor, b1: torch.Tensor,
+                           layers: Layers) -> torch.Tensor:
+    """K4 on a CUDA tensor, the plain version on a CPU tensor.
+
+    :param feats1: (B, N, C1) f32, first layer already applied per point
+    :param idx: (B, M, S) int32 neighbor indices
+    :param cxw: (B, M, C1) f32 per-center correction
+    :param b1: (C1,) f32
+    :param layers: folded (W (Cin, Cout), b (Cout,)) of layers 2..L
+    :return: (B, M, C_last) f32
+    """
+    if not feats1.is_cuda:
+        return grouped_gather_mlp_max_plain(feats1, idx, cxw, b1, layers)
+    b, n, c1 = feats1.shape
+    _, m, s = idx.shape
+    kernels.check_cuda('feats1', feats1, torch.float32, (b, n, c1))
+    kernels.check_cuda('idx', idx, torch.int32, (b, m, s))
+    kernels.check_cuda('cxw', cxw, torch.float32, (b, m, c1))
+    kernels.check_cuda('b1', b1, torch.float32, (c1,))
+    if not 1 <= len(layers) <= _K4_MAX_LAYERS:
+        raise ValueError(f'K4 takes 1..{_K4_MAX_LAYERS} layers after the '
+                         f'first, got {len(layers)}')
+    if s < 4 or s % 4 or _K4_ROWS % s:
+        raise ValueError(f'K4 needs S a multiple of 4 dividing {_K4_ROWS}, '
+                         f'got S={s}')
+    widths = [c1]
+    for i, (w, bias) in enumerate(layers):
+        kernels.check_cuda(f'W{i + 2}', w, torch.float32, (widths[-1], None))
+        kernels.check_cuda(f'b{i + 2}', bias, torch.float32, (w.shape[1],))
+        widths.append(w.shape[1])
+    smem = _k4_smem_bytes(s, widths)
+    if smem > _K4_SMEM_LIMIT:
+        raise ValueError(f'K4 needs {smem} bytes of shared memory for '
+                         f'widths {widths}, over {_K4_SMEM_LIMIT}')
+    out = torch.empty((b, m, widths[-1]), dtype=torch.float32,
+                      device=feats1.device)
+    n_rest = len(layers)
+    w_ptrs = (ctypes.c_void_p * _K4_MAX_LAYERS)(
+        *[w.data_ptr() for w, _ in layers])
+    b_ptrs = (ctypes.c_void_p * _K4_MAX_LAYERS)(
+        *[bias.data_ptr() for _, bias in layers])
+    dims = (ctypes.c_int * (_K4_MAX_LAYERS + 1))(*widths)
+    kernels.launch('grouped_gather_mlp_max', 'jmodt_grouped_gather_mlp_max',
+                   feats1.data_ptr(), idx.data_ptr(), cxw.data_ptr(),
+                   b1.data_ptr(), b, n, m, s, n_rest, smem, w_ptrs, b_ptrs,
+                   dims, out.data_ptr())
+    return out
+
+
+def fused_sa_eval(xyz: torch.Tensor, feats: Optional[torch.Tensor],
+                  new_xyz: torch.Tensor, idx: torch.Tensor,
+                  layers: Layers) -> torch.Tensor:
+    """One single-scale use_xyz=True SA level on folded eval weights.
+
+    :param xyz: (B, N, 3) f32; :param feats: (B, N, C) or None
+    :param new_xyz: (B, M, 3) f32 centers; :param idx: (B, M, S) int32
+    :param layers: folded (W, b) per MLP layer, W1 (3 + C, C1) first
+    :return: (B, M, C_last) f32
+    """
+    (w1, b1), rest = layers[0], layers[1:]
+    catf = xyz if feats is None else torch.cat([xyz, feats.float()], dim=-1)
+    feats1 = torch.matmul(catf, w1)                  # (B, N, C1) pre-gather
+    cxw = torch.matmul(new_xyz, w1[:3])              # (B, M, C1)
+    return grouped_gather_mlp_max(feats1.contiguous(), idx.contiguous(),
+                                  cxw.contiguous(), b1, rest)

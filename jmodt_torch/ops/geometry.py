@@ -1,0 +1,66 @@
+"""3D box geometry on tensors (counterpart of `jmodt_tpu/ops/geometry.py`).
+
+KITTI rect-camera convention: boxes3d (N, 7) = [x, y, z, h, w, l, ry], where
+(x, y, z) is the center of the box bottom face, y points down and ry rotates
+around the (downward) y axis.  Everything stays float32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def rotate_points_along_y(pts: torch.Tensor, angle: torch.Tensor
+                          ) -> torch.Tensor:
+    """Rotate the x (0) and z (2) channels of `pts` (..., 3 + C) around y:
+    x' = x cos - z sin, z' = x sin + z cos.  `angle` is a scalar or has the
+    leading dims of `pts` without the point dim (e.g. (N,) for (N, P, 3))."""
+    angle = torch.as_tensor(angle, dtype=pts.dtype, device=pts.device)
+    c, s = torch.cos(angle), torch.sin(angle)
+    for _ in range(pts.dim() - 1 - angle.dim()):
+        c, s = c[..., None], s[..., None]
+    x, z = pts[..., 0], pts[..., 2]
+    out = pts.clone()
+    out[..., 0] = x * c - z * s
+    out[..., 2] = x * s + z * c
+    return out
+
+
+def boxes3d_to_bev(boxes3d: torch.Tensor) -> torch.Tensor:
+    """Boxes to BEV [x1, y1, x2, y2, ry] in the x-z plane: the unrotated
+    extent centered at (x, z); the rotated IoU re-applies ry."""
+    cu, cv = boxes3d[:, 0], boxes3d[:, 2]
+    half_l, half_w = boxes3d[:, 5] / 2, boxes3d[:, 4] / 2
+    return torch.stack([cu - half_l, cv - half_w, cu + half_l, cv + half_w,
+                        boxes3d[:, 6]], dim=1)
+
+
+def enlarge_box3d(boxes3d: torch.Tensor, extra_width: float) -> torch.Tensor:
+    """Grow each box by `extra_width` per side: sizes + 2w, bottom y + w."""
+    out = boxes3d.clone()
+    out[..., 3:6] += extra_width * 2
+    out[..., 1] += extra_width
+    return out
+
+
+def points_in_boxes3d(pts: torch.Tensor, boxes3d: torch.Tensor,
+                      max_dis: float = 10.0) -> torch.Tensor:
+    """Point-in-rotated-box test, (N, 3) points x (M, 7) boxes -> (M, N)
+    bool, with the 10 m coarse rejection in x/z."""
+    x, y, z = pts[:, 0][None, :], pts[:, 1][None, :], pts[:, 2][None, :]
+    cx = boxes3d[:, 0][:, None]
+    bottom_y = boxes3d[:, 1][:, None]
+    cz = boxes3d[:, 2][:, None]
+    h = boxes3d[:, 3][:, None]
+    w = boxes3d[:, 4][:, None]
+    l = boxes3d[:, 5][:, None]
+    ry = boxes3d[:, 6][:, None]
+    cy = bottom_y - h / 2.0
+    coarse = ((x - cx).abs() <= max_dis) & ((y - cy).abs() <= h / 2.0) & \
+             ((z - cz).abs() <= max_dis)
+    cosa, sina = torch.cos(ry), torch.sin(ry)
+    x_rot = (x - cx) * cosa - (z - cz) * sina
+    z_rot = (x - cx) * sina + (z - cz) * cosa
+    fine = (x_rot >= -l / 2.0) & (x_rot <= l / 2.0) & \
+           (z_rot >= -w / 2.0) & (z_rot <= w / 2.0)
+    return coarse & fine
