@@ -10,97 +10,17 @@
 // the latency of one step (a pass over the cloud plus a block-wide argmax),
 // not bytes or FLOPs; one cloud keeps one SM busy.
 //
-// Design: K1 runs one 1024-thread block per cloud with the coordinates in
-// shared memory (12 bytes a point, 192 KB at N = 16384) and each thread's
-// min-distances in registers; a step is one pass, a warp-shuffle argmax,
-// and one exchange through shared memory (two barriers).  K2 gives each
-// small cloud (N <= 1024) one warp, holding coordinates and min-distances
-// in registers, so a step needs no barrier at all, and spreads the clouds
-// over the SMs one warp per block.
+// Design: K1 runs one 1024-thread block per cloud (fps.cuh, shared with
+// K5's FPS phase) with the coordinates in shared memory and each thread's
+// min-distances in registers.  K2 gives each small cloud (N <= 1024) one
+// warp, holding coordinates and min-distances in registers, so a step
+// needs no barrier at all, and spreads the clouds over the SMs one warp
+// per block.
 #include <climits>
 
-#include "common.cuh"
+#include "fps.cuh"
 
 namespace {
-
-constexpr int kBlock = 1024;
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
-
-template <int PPT>
-__global__ void __launch_bounds__(kBlock)
-    fps_block_kernel(const float* __restrict__ xyz, int n, int npoint,
-                     int* __restrict__ out) {
-  extern __shared__ float coords[];  // x[n], y[n], z[n]
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
-  __shared__ int s_last;
-  float* sx = coords;
-  float* sy = coords + n;
-  float* sz = coords + 2 * n;
-  const float* p = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
-  int* o = out + static_cast<size_t>(blockIdx.x) * npoint;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-
-  for (int i = tid; i < n; i += blockDim.x) {
-    sx[i] = p[3 * i];
-    sy[i] = p[3 * i + 1];
-    sz[i] = p[3 * i + 2];
-  }
-  float md[PPT];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) md[k] = 1e10f;
-  if (tid == 0) o[0] = 0;
-  __syncthreads();
-
-  int last = 0;
-  for (int t = 1; t < npoint; ++t) {
-    const float px = sx[last], py = sy[last], pz = sz[last];
-    float bv = -1.0f;
-    int bi = INT_MAX;
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) {
-      const int i = tid + k * blockDim.x;
-      if (i < n) {
-        md[k] = fminf(md[k], sq_dist(sx[i] - px, sy[i] - py, sz[i] - pz));
-        if (md[k] > bv) {  // ascending i: the first maximum stays
-          bv = md[k];
-          bi = i;
-        }
-      }
-    }
-    warp_argmax(bv, bi);
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < nwarps ? red_v[lane] : -1.0f;
-      bi = lane < nwarps ? red_i[lane] : INT_MAX;
-      warp_argmax(bv, bi);
-      if (lane == 0) {
-        s_last = bi;
-        o[t] = bi;
-      }
-    }
-    __syncthreads();
-    last = s_last;
-  }
-}
 
 template <int PPT>
 __global__ void fps_warp_kernel(const float* __restrict__ xyz, int batch,
@@ -146,19 +66,6 @@ __global__ void fps_warp_kernel(const float* __restrict__ xyz, int batch,
 }
 
 template <int PPT>
-cudaError_t launch_block(const float* xyz, int batch, int n, int npoint,
-                         int* out, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(12) * n;
-  const cudaError_t err = cudaFuncSetAttribute(
-      fps_block_kernel<PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int threads = PPT == 1 ? ((n + 31) / 32) * 32 : kBlock;
-  fps_block_kernel<PPT><<<batch, threads, smem, stream>>>(xyz, n, npoint, out);
-  return cudaGetLastError();
-}
-
-template <int PPT>
 cudaError_t launch_warp(const float* xyz, int batch, int n, int npoint,
                         int* out, cudaStream_t stream) {
   fps_warp_kernel<PPT><<<batch, 32, 0, stream>>>(xyz, batch, n, npoint, out);
@@ -175,14 +82,7 @@ JMODT_API const char* jmodt_error_string(int err) {
 // block per cloud.  n <= 232448 / 12 (coordinates in shared memory).
 JMODT_API int jmodt_fps(const float* xyz, int batch, int n, int npoint,
                         int* out, cudaStream_t stream) {
-  const int ppt = (n + kBlock - 1) / kBlock;
-  if (ppt <= 1) return launch_block<1>(xyz, batch, n, npoint, out, stream);
-  if (ppt <= 2) return launch_block<2>(xyz, batch, n, npoint, out, stream);
-  if (ppt <= 4) return launch_block<4>(xyz, batch, n, npoint, out, stream);
-  if (ppt <= 8) return launch_block<8>(xyz, batch, n, npoint, out, stream);
-  if (ppt <= 16) return launch_block<16>(xyz, batch, n, npoint, out, stream);
-  if (ppt <= 32) return launch_block<32>(xyz, batch, n, npoint, out, stream);
-  return cudaErrorInvalidValue;
+  return fps_blocks(xyz, batch, n, npoint, out, stream);
 }
 
 // xyz (batch, n, 3) float32 contiguous -> out (batch, npoint) int32; one

@@ -76,9 +76,6 @@ class PointNet2MSG(nn.Module):
         sa_cfg = cfg.RPN.SA_CONFIG
         li = cfg.LI_FUSION
         dtype = compute_dtype(cfg)
-        if cfg.RPN.MEGA_SA:
-            raise NotImplementedError(
-                'RPN.MEGA_SA: the whole-level SA kernel is not ported yet')
         skip = [input_channels]
         for k in range(len(sa_cfg.NPOINTS)):
             self.add_module(f'sa_{k}', SAModuleMSG(
@@ -118,11 +115,12 @@ class PointNet2MSG(nn.Module):
         img_levels = []
         img = image
         for k in range(n_sa):
-            # fused eval path where the cloud is small (levels 1-3)
-            fused = (cfg.RPN.FUSED_SA and self.use_xyz
-                     and l_xyz[k].shape[1] <= 8192)
+            # fused and whole-level eval paths where the cloud is small
+            # (levels 1-3 at the default widths)
+            small = self.use_xyz and l_xyz[k].shape[1] <= 8192
             li_xyz, li_feat, li_idx = getattr(self, f'sa_{k}')(
-                l_xyz[k], l_features[k], fused)
+                l_xyz[k], l_features[k], cfg.RPN.FUSED_SA and small,
+                cfg.RPN.MEGA_SA and small)
             if use_fusion:
                 li_xy = torch.gather(l_xy[k], 1, li_idx.long()[:, :, None]
                                      .expand(-1, -1, 2))

@@ -14,6 +14,7 @@ from jmodt_torch.ops.fused_sa import fold_pointwise_mlp, fused_sa_eval
 from jmodt_torch.ops.grouping import (ball_query_multi, group_points_fl,
                                       group_xyz)
 from jmodt_torch.ops.interpolate import three_interpolate_fl, three_nn
+from jmodt_torch.ops.sa_level import sa_level_fused
 from jmodt_torch.ops.sampling import farthest_point_sample, gather_xyz
 
 
@@ -27,7 +28,10 @@ class SAModuleMSG(nn.Module):
         (B, 1, C').
 
     `fused` takes the BN-folded gather->MLP->max path (ops/fused_sa.py,
-    always float32) for each scale; it needs npoint and use_xyz.
+    always float32) for each scale; it needs npoint and use_xyz.  `mega`
+    runs the whole level, FPS included, in one call (ops/sa_level.py, K5
+    on the card, always float32); it takes precedence over `fused` and has
+    the same needs.
     """
 
     def __init__(self, npoint: Optional[int], radii: Sequence[float],
@@ -50,9 +54,15 @@ class SAModuleMSG(nn.Module):
         return [getattr(self, f'mlp_{i}') for i in range(len(self.radii))]
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor],
-                fused: bool = False):
+                fused: bool = False, mega: bool = False):
         if self.npoint is None:
             return None, self._group_all(xyz, features), None
+        if mega and self.use_xyz:
+            return sa_level_fused(
+                xyz.contiguous(),
+                None if features is None else features.float().contiguous(),
+                self.npoint, self.radii, self.nsamples,
+                [fold_pointwise_mlp(mlp) for mlp in self._mlps()])
         idx = farthest_point_sample(xyz, self.npoint)
         new_xyz = gather_xyz(xyz, idx)
         nbrs = ball_query_multi(self.radii, self.nsamples, xyz, new_xyz)

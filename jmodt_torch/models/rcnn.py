@@ -1,6 +1,8 @@
 """RCNN refinement head, eval branch (counterpart of
 `jmodt_tpu/models/rcnn.py`).  The link / start-end correlation heads are
 built so that their weights load; the detection step does not run them.
+The tracker runs standalone `CorrelationHead`s and normalizes their link
+scores with `masked_bidirectional_softmax`.
 """
 
 from __future__ import annotations
@@ -32,6 +34,18 @@ class CorrelationHead(nn.Module):
 
     def forward(self, x):
         return self.mlp(x)
+
+
+def masked_bidirectional_softmax(scores: torch.Tensor,
+                                 row_valid: torch.Tensor,
+                                 col_valid: torch.Tensor) -> torch.Tensor:
+    """(softmax over valid columns + softmax over valid rows) / 2 on the
+    valid sub-matrix of `scores` (P, D), zero elsewhere.  Invalid entries
+    are filled with -1e9, not -inf, so an all-invalid row stays finite."""
+    ok = row_valid[:, None] & col_valid[None, :]
+    masked = torch.where(ok, scores, torch.full_like(scores, -1e9))
+    out = (torch.softmax(masked, dim=1) + torch.softmax(masked, dim=0)) / 2
+    return torch.where(ok, out, torch.zeros_like(out))
 
 
 class RCNN(nn.Module):

@@ -29,7 +29,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 _BUILD = Path(__file__).resolve().parents[2] / 'build'
-_SOURCES = ('fps.cu', 'three_nn.cu', 'grouped_gather_mlp.cu')
+_SOURCES = ('fps.cu', 'three_nn.cu', 'grouped_gather_mlp.cu',
+            'sa_level.cu')
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-Xcompiler', '-fPIC')
 
@@ -44,6 +45,10 @@ _SIGNATURES = {
                                      _I, ctypes.POINTER(_P),
                                      ctypes.POINTER(_P), ctypes.POINTER(_I),
                                      _P, _P),
+    'jmodt_sa_level': (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                       ctypes.POINTER(_P), ctypes.POINTER(_P), _P,
+                       ctypes.POINTER(_P), ctypes.POINTER(_P),
+                       ctypes.POINTER(_P), _P, _P, _P, _P),
 }
 
 launches: collections.Counter = collections.Counter()
@@ -132,6 +137,12 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
     matches `shape` (None entries match any size)."""
     if not t.is_cuda:
         raise ValueError(f'{name}: expected a CUDA tensor, got {t.device}')
+    check_layout(name, t, dtype, shape)
+
+
+def check_layout(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: tuple) -> None:
+    """`check_cuda` without the device check."""
     if t.dtype != dtype:
         raise ValueError(f'{name}: expected {dtype}, got {t.dtype}')
     if t.dim() != len(shape) or any(

@@ -1,5 +1,5 @@
-"""Rotated-rectangle intersection for BEV boxes (counterpart of
-`jmodt_tpu/ops/rotated_iou.py::box_overlap_bev`).
+"""Rotated-rectangle intersection for BEV boxes, and the BEV and 3D IoUs
+built on it (counterpart of `jmodt_tpu/ops/rotated_iou.py`).
 
 Green's-theorem form: each box's edges are clipped against the other
 rectangle with branchless Liang-Barsky and the segment shoelace terms are
@@ -13,6 +13,8 @@ around the box center, rotated by `angle` about that center.
 from __future__ import annotations
 
 import torch
+
+from jmodt_torch.ops.geometry import boxes3d_to_bev, height_overlap
 
 EPS = 1e-8
 # closed/open convention for shared boundaries: A's edges clip against B
@@ -109,10 +111,16 @@ def _area(boxes: torch.Tensor) -> torch.Tensor:
     return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
 
 
+def boxes_overlap_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor
+                      ) -> torch.Tensor:
+    """Pairwise rotated intersection areas, (M, 5) x (N, 5) -> (M, N)."""
+    return box_overlap_bev(boxes_a[:, None, :], boxes_b[None, :, :])
+
+
 def boxes_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor
                   ) -> torch.Tensor:
     """Pairwise rotated BEV IoU, (M, 5) x (N, 5) -> (M, N)."""
-    overlap = box_overlap_bev(boxes_a[:, None, :], boxes_b[None, :, :])
+    overlap = boxes_overlap_bev(boxes_a, boxes_b)
     sa = _area(boxes_a)[:, None]
     sb = _area(boxes_b)[None, :]
     return overlap / torch.clamp(sa + sb - overlap, min=EPS)
@@ -131,3 +139,15 @@ def boxes_iou_normal(boxes_a: torch.Tensor, boxes_b: torch.Tensor
     sa = _area(boxes_a)[:, None]
     sb = _area(boxes_b)[None, :]
     return inter / torch.clamp(sa + sb - inter, min=EPS)
+
+
+def boxes_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor
+                ) -> torch.Tensor:
+    """Pairwise 3D IoU: rotated BEV overlap x height overlap over the
+    volume union, (M, 7) x (N, 7) [x, y, z, h, w, l, ry] -> (M, N)."""
+    overlap = (boxes_overlap_bev(boxes3d_to_bev(boxes_a),
+                                 boxes3d_to_bev(boxes_b))
+               * height_overlap(boxes_a, boxes_b))
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return overlap / torch.clamp(vol_a + vol_b - overlap, min=1e-7)

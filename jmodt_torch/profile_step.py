@@ -1,17 +1,27 @@
-"""Where the detection step's time goes on the CUDA card.
+"""Where a frame's time goes on the CUDA card.
 
-    python3 -m jmodt_torch.profile_step [--frames N] [--dtype bfloat16]
+    python3 -m jmodt_torch.profile_step [--path joint|detection]
+                                        [--frames N] [--dtype bfloat16]
 
-Runs the detection step at the default Config() (16384 points, 384x1280
-uint8 image, random weights from seed 0) on synthetic frames, after one
-warm-up frame, and prints:
+`--path joint` (the default) runs the joint detect + track step at the
+default Config() with RPN.MEGA_SA (16384 points, 384x1280 uint8 image,
+detector weights from seed 0, a link head from seed 1, 64 track slots, the
+top 16 detections, score threshold 0.2, Hungarian assignment);
+`--path detection` runs the detection step alone at the default Config().
+Synthetic frames; one warm-up frame first.  Prints:
 
 * stages: wall ms of each stage of one frame, with the device synchronized
   at every stage boundary (the syncs remove overlap, so the stages add up
-  to a little more than an unsynchronized frame);
+  to a little more than an unsynchronized frame).  Joint: detection, top-K
+  and packing, tracker; detection: the backbone's and heads' modules,
+  proposals, RoI pooling and the final NMS;
+* joint only: host syncs per frame, the tracker's own device-to-host reads
+  (`device_tracker.host_syncs`) and every synchronizing CUDA call of the
+  frame (torch's sync debug mode);
 * frame: unsynchronized wall ms per frame over N frames, the device time of
   all kernels per frame from torch.profiler, and the device's idle share;
-* the kernels with the most device time per frame.
+* the kernels with the most device time per frame, and the host ops with
+  the most CPU time.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import argparse
 import collections
 import dataclasses
 import time
+import warnings
 
 import torch
 
@@ -58,8 +69,104 @@ def _timed(fn, times, name):
     return wrapped
 
 
+def _detection(cfg, times):
+    """(run(frame), stage setup -> undo) for the detection step."""
+    from jmodt_torch.models import inference, point_rcnn
+    from jmodt_torch.models.inference import make_detection_step
+    from jmodt_torch.models.point_rcnn import build_detector
+
+    model = build_detector(cfg, seed=0)
+    step = make_detection_step(cfg, model)
+
+    def run(f):
+        return step(f['pts_input'], f['img'], f['pts_xy'])
+
+    def stages():
+        hooks = _stage_hooks(model, times)
+        saved = (point_rcnn.proposal_layer, point_rcnn.pool_rois_for_eval,
+                 inference.nms_bev)
+        point_rcnn.proposal_layer = _timed(saved[0], times, 'proposal_layer')
+        point_rcnn.pool_rois_for_eval = _timed(saved[1], times,
+                                               'pool_rois_for_eval')
+        inference.nms_bev = _timed(saved[2], times, 'final nms_bev')
+
+        def undo():
+            for h in hooks:
+                h.remove()
+            (point_rcnn.proposal_layer, point_rcnn.pool_rois_for_eval,
+             inference.nms_bev) = saved
+        return undo
+
+    return run, stages
+
+
+def _joint(cfg, times):
+    """(run(frame), stage setup -> undo) for the joint step, which numbers
+    the frames 1, 2, ... as they come.  The step is built twice, plain and
+    with synchronized timers around its detection and tracker steps (the
+    rest of a frame is top-K and packing)."""
+    from jmodt_torch import pipeline
+    from jmodt_torch.models.point_rcnn import build_detector, init_weights
+    from jmodt_torch.models.rcnn import CorrelationHead
+    from jmodt_torch.tracking.device_tracker import init_state
+
+    feat_dim = cfg.RCNN.SA_CONFIG.MLPS[-1][-1]
+    model = build_detector(cfg, seed=0)
+    head = CorrelationHead(feat_dim, cfg.REID.LINK_FC, use_bn=cfg.REID.USE_BN)
+    init_weights(head, 1)
+    kw = dict(track_k=16, det_score_thresh=0.2, assign='hungarian')
+    joint = pipeline.make_joint_step(cfg, model, head, **kw)
+    saved = (pipeline.make_detection_step, pipeline.make_device_tracker_step)
+    pipeline.make_detection_step = \
+        lambda *a, **k: _timed(saved[0](*a, **k), times, 'detection')
+    pipeline.make_device_tracker_step = \
+        lambda *a, **k: _timed(saved[1](*a, **k), times, 'tracker')
+    try:
+        timed_joint = pipeline.make_joint_step(cfg, model, head, **kw)
+    finally:
+        pipeline.make_detection_step, pipeline.make_device_tracker_step = \
+            saved
+    state = [init_state(64, feat_dim), 0]       # tracker state, frame id
+    use = [joint]
+
+    def run(f):
+        state[1] += 1
+        state[0], packed = use[0](state[0], state[1], f['pts_input'],
+                                  f['img'], f['pts_xy'])
+        return packed
+
+    def stages():
+        use[0] = timed_joint
+
+        def undo():
+            use[0] = joint
+        return undo
+
+    return run, stages
+
+
+def _host_syncs(run, frames):
+    """(tracker device-to-host reads, synchronizing CUDA calls) per frame,
+    over `frames` run one after the other."""
+    from jmodt_torch.tracking import device_tracker
+    before = device_tracker.host_syncs
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            for f in frames:
+                run(f)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    syncs = sum('synchroniz' in str(w.message) for w in seen)
+    n = len(frames)
+    return (device_tracker.host_syncs - before) / n, syncs / n
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--path', default='joint', choices=('joint', 'detection'))
     ap.add_argument('--frames', type=int, default=3)
     ap.add_argument('--dtype', default='bfloat16',
                     choices=('bfloat16', 'float32'))
@@ -67,31 +174,22 @@ def main() -> None:
 
     from jmodt_torch.config import Config
     from jmodt_torch.data.synthetic import make_eval_frame
-    from jmodt_torch.models import inference, point_rcnn
-    from jmodt_torch.models.inference import make_detection_step
-    from jmodt_torch.models.point_rcnn import build_detector
 
     cfg = dataclasses.replace(Config(), DTYPE=args.dtype)
+    if args.path == 'joint':
+        cfg = dataclasses.replace(
+            cfg, RPN=dataclasses.replace(cfg.RPN, MEGA_SA=True))
     frames = [make_eval_frame(s, cfg, raw_u8=True)
               for s in range(args.frames + 1)]
-    model = build_detector(cfg, seed=0)
-    step = make_detection_step(cfg, model)
-
-    def run(f):
-        return step(f['pts_input'], f['img'], f['pts_xy'])
+    times = collections.defaultdict(float)
+    run, stages = (_joint if args.path == 'joint' else _detection)(cfg,
+                                                                    times)
 
     run(frames[0])                                       # warm-up
     torch.cuda.synchronize()
 
     # stages of one frame, synchronized at each boundary
-    times = collections.defaultdict(float)
-    hooks = _stage_hooks(model, times)
-    saved = (point_rcnn.proposal_layer, point_rcnn.pool_rois_for_eval,
-             inference.nms_bev)
-    point_rcnn.proposal_layer = _timed(saved[0], times, 'proposal_layer')
-    point_rcnn.pool_rois_for_eval = _timed(saved[1], times,
-                                           'pool_rois_for_eval')
-    inference.nms_bev = _timed(saved[2], times, 'final nms_bev')
+    undo = stages()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -99,16 +197,21 @@ def main() -> None:
         torch.cuda.synchronize()
         total = (time.perf_counter() - t0) * 1e3
     finally:
-        for h in hooks:
-            h.remove()
-        (point_rcnn.proposal_layer, point_rcnn.pool_rois_for_eval,
-         inference.nms_bev) = saved
-    print(f'stages of one synchronized frame ({args.dtype}), ms:')
+        undo()
+    rest = ('(rest: top-K, packing)' if args.path == 'joint'
+            else '(rest: decode, scoring, glue)')
+    print(f'stages of one synchronized {args.path} frame ({args.dtype}), '
+          'ms:')
     for name, ms in sorted(times.items(), key=lambda kv: -kv[1]):
         print(f'  {name:32s} {ms:9.3f}')
-    print(f'  {"(rest: decode, scoring, glue)":32s} '
-          f'{total - sum(times.values()):9.3f}')
+    print(f'  {rest:32s} {total - sum(times.values()):9.3f}')
     print(f'  {"total":32s} {total:9.3f}')
+
+    if args.path == 'joint':
+        trk, allsync = _host_syncs(run, frames[1:])
+        print(f'host syncs per frame: tracker {trk:.1f} (device-to-host '
+              f'reads), whole frame {allsync:.1f} (synchronizing CUDA calls, '
+              f'sync debug mode; {args.frames} frames)')
 
     # unsynchronized frames under the profiler
     acts = [torch.profiler.ProfilerActivity.CPU,

@@ -17,9 +17,11 @@ import torch
 
 import __graft_entry__
 from jmodt_torch import config as torch_config
+from jmodt_torch import pipeline, weights
 from jmodt_torch.models import inference, point_rcnn
-from jmodt_torch.ops import fused_sa, interpolate, kernels, sampling
-from jmodt_torch import weights
+from jmodt_torch.models.rcnn import CorrelationHead
+from jmodt_torch.ops import fused_sa, interpolate, kernels, sa_level, sampling
+from jmodt_torch.tracking import device_tracker
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / 'jmodt_torch').rglob('*.py')) + [
@@ -74,6 +76,24 @@ def test_entry_points_need_a_card_unless_asked(monkeypatch):
     assert next(model.parameters()).device.type == 'cpu'
 
 
+def test_tracker_and_joint_step_need_a_card_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    cfg = _small_cfg()
+    head = CorrelationHead(8, (8,))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        device_tracker.init_state(4, 8)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        device_tracker.make_device_tracker_step(head)
+    model = point_rcnn.build_detector(cfg, device='cpu')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        pipeline.make_joint_step(cfg, model, head)
+    state = device_tracker.init_state(4, 8, device='cpu')
+    assert state.mean.device.type == 'cpu'
+    device_tracker.make_device_tracker_step(head, device='cpu')
+    pipeline.make_joint_step(cfg, model, head, device='cpu')
+    assert next(head.parameters()).device.type == 'cpu'
+
+
 def test_build_detector_is_seeded():
     cfg = _small_cfg()
     a = point_rcnn.build_detector(cfg, device='cpu', seed=3).state_dict()
@@ -98,6 +118,64 @@ def test_kernel_wrapper_checks():
         torch.zeros(1, 3, 2), torch.zeros(2),
         [(torch.eye(2), torch.zeros(2))])
     assert torch.equal(out, torch.ones(1, 3, 2))
+
+
+def _k5_args():
+    """A valid two-scale level: N=64, C=5, M=16, S 8 and 16."""
+    layers = [((torch.zeros(8, 16), torch.zeros(16)),
+               (torch.zeros(16, 32), torch.zeros(32)))] * 2
+    return dict(xyz=torch.zeros(2, 64, 3), feats=torch.zeros(2, 64, 5),
+                npoint=16, radii=(0.5, 1.0), nsamples=(8, 16),
+                folded_per_scale=layers)
+
+
+@pytest.mark.parametrize('bad,match', [
+    (dict(xyz=torch.zeros(2, 64, 3, dtype=torch.float64)), 'float32'),
+    (dict(feats=torch.zeros(2, 5, 64).transpose(1, 2)), 'contiguous'),
+    (dict(feats=torch.zeros(2, 63, 5)), 'shape'),
+    (dict(nsamples=(8, 6)), 'nsample'),
+    (dict(npoint=65), 'npoint'),
+    (dict(radii=(0.5,) * 5, nsamples=(8,) * 5), 'scales'),
+    (dict(folded_per_scale=[((torch.zeros(7, 16), torch.zeros(16)),
+                             (torch.zeros(16, 32), torch.zeros(32)))] * 2),
+     'shape'),
+    (dict(folded_per_scale=[((torch.zeros(8, 16), torch.zeros(16)),)] * 2),
+     'layers'),
+])
+def test_k5_wrapper_checks(bad, match):
+    """K5's wrapper refuses what its CUDA entry does not take (the checks
+    run on CPU tensors here, without the device check), and a CPU tensor
+    never reaches the kernel library."""
+    args = _k5_args()
+    assert len(sa_level._k5_plan(**args, check=kernels.check_layout)) == 2
+    with pytest.raises(ValueError, match=match):
+        sa_level._k5_plan(**(args | bad), check=kernels.check_layout)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        sa_level._k5_plan(**args)
+    new_xyz, pooled, idx = sa_level.sa_level_fused(**args)
+    assert pooled.shape == (2, 16, 64) and idx.dtype == torch.int32
+
+
+def test_k5_fits_the_main_path():
+    """Every MEGA_SA level of the default config (RPN levels 1-3) passes
+    K5's checks."""
+    cfg = torch_config.Config()
+    sa = cfg.RPN.SA_CONFIG
+    n, cin = cfg.RPN.NUM_POINTS, 0
+    for k in range(4):
+        cout = sum(m[-1] for m in sa.MLPS[k])
+        if k > 0:
+            layers = []
+            for mlp in sa.MLPS[k]:
+                widths = [3 + cin, *mlp]
+                layers.append([(torch.zeros(a, b), torch.zeros(b))
+                               for a, b in zip(widths[:-1], widths[1:])])
+            plan = sa_level._k5_plan(
+                torch.zeros(1, n, 3), torch.zeros(1, n, cin),
+                sa.NPOINTS[k], sa.RADIUS[k], sa.NSAMPLE[k], layers,
+                check=kernels.check_layout)
+            assert [w[-1] for w, _ in plan] == [m[-1] for m in sa.MLPS[k]]
+        n, cin = sa.NPOINTS[k], cout
 
 
 def test_k4_shared_memory_fits_the_main_path():
