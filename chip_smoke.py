@@ -7,10 +7,14 @@ Phases, in order; any failure exits non-zero:
 1. build    compile the hand-written kernels from jmodt_torch/csrc.
 2. kernels  one frame of the detection step records the inputs each kernel
             wrapper gets on the main path; every kernel (K1 FPS, K2 batched
-            FPS, K3 three-NN, K4 grouped gather-MLP-max) is then run on those
+            FPS, K3 three-NN, K4 grouped gather-MLP-max, K6 depth-to-space
+            at the four NonOverlapDeconv levels) is then run on those
             inputs and held against its plain PyTorch version: FPS and 3-NN
             indices equal, 3-NN distances within 1e-5 relative, K4 within
-            1e-4 of the output's scale.  Times come from CUDA events.
+            1e-4 of the output's scale, K6 equal bit for bit.  Times come
+            from CUDA events; K6 is also timed against permute().contiguous()
+            (the move alone) and its deconv (matmul + K6) against
+            F.conv_transpose2d.
 3. step     the detection step at the default Config() (bfloat16 network,
             16384 points, 384x1280 uint8 image, random weights from seed 0)
             runs 3 frames with the launch counts set to 0 just before; each
@@ -37,8 +41,22 @@ Phases, in order; any failure exits non-zero:
 7. parity   3 frames of the joint step in float32 on the card and on the
             CPU with the same weights: tid and emit equal, boxes and scores
             within 1e-3 of their scale.
+8. streams  the lockstep step (make_batched_joint_step) at S = 4 streams,
+            bfloat16, the joint step's weights and settings: one warm-up
+            frame, then 3 frames with the launch counts set to 0 just
+            before; each kernel must launch its per-frame count on every
+            lockstep frame (not per stream), packed (4, 64, 10) rows must be
+            finite and some emitted, and the tracker must read the host
+            exactly twice a frame.  Then 2 frames in float32 at S = 2
+            against two independent joint steps on the card: tid and emit
+            equal, boxes and scores within 1e-3 of their scale.
+9. scan     ScanPipeline with chunks of 3 over 4 frames (a full chunk and a
+            ragged tail) against JointPipeline on the same frames: frame
+            ids and the tids of the emitted rows equal, boxes within 1e-3
+            of their scale.
 
-Prints a {"kernels": [...]} line (launches from phase 6), the card's name
+Prints a {"kernels": [...]} line (launches from phase 6; per path from
+phases 3, 6 and 8), the card's name
 and power limit, and as its last line {"ok": true, "device": {...}}.  Needs
 one card; without one it exits non-zero before printing any result.
 """
@@ -51,7 +69,9 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM
 PEAK_F32_FLOPS = 67e12
@@ -59,10 +79,13 @@ PEAK_BYTES = 3.35e12
 
 # per-frame launches of each kernel on the detection step (phase 3) and on
 # the joint step with RPN.MEGA_SA (phase 6, the main path)
+# the joint step with RPN.MEGA_SA (phase 6, the main path); the lockstep
+# step (phase 8) launches the joint step's counts per lockstep frame
 PER_FRAME = {'fps': 4, 'fps_batched': 2, 'three_nn': 4,
-             'grouped_gather_mlp_max': 8}
+             'grouped_gather_mlp_max': 8, 'depth_to_space': 4}
 PER_FRAME_JOINT = {'fps': 1, 'fps_batched': 2, 'three_nn': 4,
-                   'grouped_gather_mlp_max': 2, 'sa_level': 3}
+                   'grouped_gather_mlp_max': 2, 'sa_level': 3,
+                   'depth_to_space': 4}
 KERNELS = [
     dict(name='fps', counter='fps', source='jmodt_torch/csrc/fps.cu',
          replaces='jmodt_tpu/ops/pallas/fps.py:63'),
@@ -78,12 +101,17 @@ KERNELS = [
     dict(name='sa_level', counter='sa_level',
          source='jmodt_torch/csrc/sa_level.cu',
          replaces='jmodt_tpu/ops/pallas/sa_level.py:364'),
+    dict(name='depth_to_space', counter='depth_to_space',
+         source='jmodt_torch/csrc/depth_to_space.cu',
+         replaces='jmodt_tpu/ops/pallas/depth_to_space.py:87'),
 ]
 NET_TOL = 1e-3
 K4_TOL = 1e-4
 K5_TOL = 1e-4
 JOINT = dict(max_tracks=64, track_k=16, det_score_thresh=0.2,
              assign='hungarian')
+STREAMS = 4
+HOST_READS = 2          # tracker device-to-host reads a lockstep frame
 
 
 class SmokeFailure(Exception):
@@ -124,18 +152,24 @@ def bound_ms(flops: float, nbytes: float):
 
 # ----------------------------------------------------------------- phase 2
 
-def record_kernel_inputs(step, frame):
+def record_kernel_inputs(step, model, frame):
     """Run one frame, recording the arguments of every kernel wrapper call
-    in main-path order: {kernel name: [args, ...]}."""
+    in main-path order: {kernel name: [args, ...]}, and under 'deconv' each
+    NonOverlapDeconv module with its input, [(module, x), ...]."""
+    import jmodt_torch.models.image_backbone as image_backbone
     import jmodt_torch.models.pointnet2 as pointnet2
     import jmodt_torch.ops.fused_sa as fused_sa
+    from jmodt_torch.ops.sampling import FPS_WARP_MAX_POINTS
     calls = {k['name']: [] for k in KERNELS if k['name'] != 'sa_level'}
+    deconvs = []
     originals = (pointnet2.farthest_point_sample, pointnet2.three_nn,
-                 fused_sa.grouped_gather_mlp_max)
+                 fused_sa.grouped_gather_mlp_max,
+                 image_backbone.depth_to_space)
 
     def fps(xyz, npoint):
-        calls['fps' if xyz.shape[0] == 1 else 'fps_batched'].append(
-            (xyz, npoint))
+        b, n, _ = xyz.shape
+        calls['fps_batched' if b > 1 and n <= FPS_WARP_MAX_POINTS
+              else 'fps'].append((xyz, npoint))
         return originals[0](xyz, npoint)
 
     def three_nn(unknown, known):
@@ -147,21 +181,65 @@ def record_kernel_inputs(step, frame):
                                                 tuple(layers)))
         return originals[2](feats1, idx, cxw, b1, layers)
 
+    def d2s(*args):
+        calls['depth_to_space'].append(args)
+        return originals[3](*args)
+
     pointnet2.farthest_point_sample, pointnet2.three_nn = fps, three_nn
     fused_sa.grouped_gather_mlp_max = ggmm
+    image_backbone.depth_to_space = d2s
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, _out: deconvs.append((mod, inp[0])))
+        for m in model.modules()
+        if isinstance(m, image_backbone.NonOverlapDeconv)]
     try:
         step(frame['pts_input'], frame['img'], frame['pts_xy'])
         torch.cuda.synchronize()
     finally:
         (pointnet2.farthest_point_sample, pointnet2.three_nn,
-         fused_sa.grouped_gather_mlp_max) = originals
-    return calls
+         fused_sa.grouped_gather_mlp_max,
+         image_backbone.depth_to_space) = originals
+        for h in hooks:
+            h.remove()
+    return calls, deconvs
 
 
-def check_kernels(calls):
+def check_k6(args, deconv):
+    """K6 at one pyramid level: equal to its plain version; its time, the
+    plain version's, permute().contiguous() (the move alone), and the whole
+    deconv (matmul + K6) beside F.conv_transpose2d.  Returns (error, ms,
+    plain ms, library ms, operations, bytes, shape, deconv ms, deconv
+    library ms)."""
+    from jmodt_torch.ops import depth_to_space as d2s
+    taps, k, r, h0, w0, bias = args
+    b = taps.shape[0]
+    got = d2s.depth_to_space(*args)
+    want = d2s.depth_to_space_plain(*args)
+    check(torch.equal(got, want), f'K6 k={k}: differs from plain')
+    err = float((got.float() - want.float()).abs().max())
+    ms = cuda_ms(lambda: d2s.depth_to_space(*args), 20)
+    plain = cuda_ms(lambda: d2s.depth_to_space_plain(*args), 10)
+    lib = cuda_ms(lambda: taps.view(b, h0, w0, k, k, r).permute(
+        0, 1, 3, 2, 4, 5).contiguous(), 20)
+    mod, x = deconv
+    dt = mod.dtype
+    dec = cuda_ms(lambda: mod(x), 20)
+    dec_lib = cuda_ms(lambda: F.conv_transpose2d(
+        x.permute(0, 3, 1, 2).to(dt), mod.weight.to(dt), mod.bias.to(dt),
+        stride=k), 20)
+    flops = float(got.numel())                  # the bias adds
+    nbytes = float(taps.element_size() * (taps.numel() + r + got.numel()))
+    shape = f'B={b} k={k} {h0}x{w0}x{k * k * r}->{h0 * k}x{w0 * k}x{r}'
+    return err, ms, plain, lib, flops, nbytes, shape, dec, dec_lib
+
+
+def check_kernels(recorded):
     """Each recorded call: kernel vs plain version, times and bound.
     Returns {kernel name: aggregate over one frame's calls}."""
     from jmodt_torch.ops import fused_sa, interpolate, sampling
+    calls, deconvs = recorded
+    check(len(deconvs) == PER_FRAME['depth_to_space'],
+          f'{len(deconvs)} NonOverlapDeconv calls a frame')
     agg = {}
     for name, args_list in calls.items():
         check(len(args_list) == PER_FRAME[name],
@@ -169,7 +247,7 @@ def check_kernels(calls):
               f'{PER_FRAME[name]}')
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                    t_ops=0.0, t_bytes=0.0, max_abs_err=0.0)
-        for args in args_list:
+        for i, args in enumerate(args_list):
             if name in ('fps', 'fps_batched'):
                 xyz, npoint = args
                 b, n, _ = xyz.shape
@@ -202,6 +280,14 @@ def check_kernels(calls):
                 flops = 8.0 * b * n * m
                 nbytes = 12.0 * b * (n + m) + 24.0 * b * n
                 shape = f'B={b} {n}x{m}'
+            elif name == 'depth_to_space':
+                (err, ms, plain, lib, flops, nbytes, shape, dec,
+                 dec_lib) = check_k6(args, deconvs[i])
+                tot['deconv_ms'] = tot.get('deconv_ms', 0.0) + dec
+                tot['deconv_library_ms'] = (tot.get('deconv_library_ms', 0.0)
+                                            + dec_lib)
+                shape += (f' deconv: matmul+K6 {dec:.4f} ms, '
+                          f'conv_transpose2d {dec_lib:.4f} ms')
             else:
                 feats1, idx, cxw, b1, layers = args
                 b, n, c1 = feats1.shape
@@ -316,23 +402,37 @@ def mega_cfg(dtype: str):
         cfg, DTYPE=dtype, RPN=dataclasses.replace(cfg.RPN, MEGA_SA=True))
 
 
-def build_joint(cfg, device=None):
-    """The main path: detector weights from seed 0, link head from seed 1."""
+def joint_parts(cfg, device=None):
+    """The main path's detector (weights from seed 0) and link head (seed
+    1), and the joint step's settings but max_tracks."""
     from jmodt_torch.models.point_rcnn import build_detector, init_weights
     from jmodt_torch.models.rcnn import CorrelationHead
-    from jmodt_torch.pipeline import make_joint_step
     model = build_detector(cfg, device=device, seed=0)
     head = CorrelationHead(cfg.RCNN.SA_CONFIG.MLPS[-1][-1], cfg.REID.LINK_FC,
                            use_bn=cfg.REID.USE_BN)
     init_weights(head, 1)
     kw = {k: v for k, v in JOINT.items() if k != 'max_tracks'}
-    return make_joint_step(cfg, model, head, device=device, **kw)
+    return model, head, kw
 
 
-def new_state(cfg, device=None):
-    from jmodt_torch.tracking.device_tracker import init_state
-    return init_state(JOINT['max_tracks'], cfg.RCNN.SA_CONFIG.MLPS[-1][-1],
-                      device=device)
+def build_joint(cfg, device=None, batched=False):
+    """The joint step of the main path (`make_batched_joint_step` when
+    `batched`)."""
+    from jmodt_torch.pipeline import make_batched_joint_step, make_joint_step
+    model, head, kw = joint_parts(cfg, device)
+    make = make_batched_joint_step if batched else make_joint_step
+    return make(cfg, model, head, device=device, **kw)
+
+
+def new_state(cfg, device=None, streams=None):
+    """An empty tracker state; with `streams`, one for the lockstep step."""
+    from jmodt_torch.tracking.device_tracker import (init_batched_state,
+                                                     init_state)
+    feat_dim = cfg.RCNN.SA_CONFIG.MLPS[-1][-1]
+    if streams is None:
+        return init_state(JOINT['max_tracks'], feat_dim, device=device)
+    return init_batched_state(streams, JOINT['max_tracks'], feat_dim,
+                              device=device)
 
 
 def record_k5_inputs(joint, cfg, frame):
@@ -503,6 +603,125 @@ def joint_parity(frames):
     return errs, sum(int(r[:, 9].sum()) for r in rows['cpu'])
 
 
+# ----------------------------------------------------------- phases 8, 9
+
+def lockstep_inputs(frames, t, streams):
+    """(frame_ids, pts, imgs, xys) of lockstep frame t: stream s sees
+    frames[(s + t) % len(frames)], numbered t + 1."""
+    pick = [frames[(s + t) % len(frames)] for s in range(streams)]
+    return (np.full(streams, t + 1, np.int32),
+            *(np.concatenate([f[k] for f in pick])
+              for k in ('pts_input', 'img', 'pts_xy')))
+
+
+def run_batched(bjoint, cfg, frames):
+    """Phase 8: one warm-up lockstep frame, then 3 with per-frame launch
+    and host-read checks.  Returns (ms a lockstep frame, launches, rows
+    emitted a lockstep frame)."""
+    from jmodt_torch.ops import kernels
+    from jmodt_torch.tracking import device_tracker
+    states = new_state(cfg, streams=STREAMS)
+    states, _ = bjoint(states, *lockstep_inputs(frames, 0, STREAMS))
+    inputs = [lockstep_inputs(frames, t, STREAMS) for t in (1, 2, 3)]
+    kernels.launches.clear()
+    reads0 = device_tracker.host_syncs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    packs, per_frame, reads = [], [], []
+    for args in inputs:
+        states, packed = bjoint(states, *args)
+        packs.append(packed)
+        per_frame.append(dict(kernels.launches))    # running totals
+        reads.append(device_tracker.host_syncs - reads0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(inputs)
+    counts = dict(kernels.launches)
+    for i, seen in enumerate(per_frame):
+        for name, per in PER_FRAME_JOINT.items():
+            check(seen.get(name, 0) == per * (i + 1),
+                  f'streams: {name} launched {seen.get(name, 0)} times in '
+                  f'{i + 1} lockstep frames, expected {per * (i + 1)}')
+        check(reads[i] == HOST_READS * (i + 1),
+              f'streams: {reads[i]} tracker host reads in {i + 1} frames, '
+              f'expected {HOST_READS * (i + 1)}')
+    emitted = 0
+    for i, packed in enumerate(packs):
+        check(packed.shape == (STREAMS, JOINT['max_tracks'], 10),
+              f'streams frame {i}: packed {tuple(packed.shape)}')
+        check(bool(torch.isfinite(packed).all()),
+              f'streams frame {i}: non-finite rows')
+        emitted += int((packed[..., 9] > 0.5).sum())
+    check(emitted > 0, 'streams: no row emitted in 3 lockstep frames')
+    return ms, counts, emitted / len(packs)
+
+
+def batched_parity(frames, streams=2, n_frames=2):
+    """Phase 8, second half: float32 lockstep streams against independent
+    joint steps on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = mega_cfg('float32')
+    bjoint = build_joint(cfg32, batched=True)
+    states = new_state(cfg32, streams=streams)
+    lock = []
+    for t in range(n_frames):
+        states, packed = bjoint(states, *lockstep_inputs(frames, t, streams))
+        lock.append(packed.cpu())
+    del bjoint
+    joint = build_joint(cfg32)
+    errs, emitted = [], 0
+    for s in range(streams):
+        state = new_state(cfg32)
+        for t in range(n_frames):
+            f = frames[(s + t) % len(frames)]
+            state, packed = joint(state, t + 1, f['pts_input'], f['img'],
+                                  f['pts_xy'])
+            got, want = lock[t][s], packed.cpu()
+            check(torch.equal(got[:, 0], want[:, 0]),
+                  f'streams parity stream {s} frame {t}: tid')
+            check(torch.equal(got[:, 9], want[:, 9]),
+                  f'streams parity stream {s} frame {t}: emit')
+            errs.append(scale_err(got[:, 1:9], want[:, 1:9]))
+            check(errs[-1] <= NET_TOL, f'streams parity stream {s} frame '
+                  f'{t}: boxes / scores err {errs[-1]}')
+            emitted += int(want[:, 9].sum())
+    return errs, emitted
+
+
+def scan_vs_joint(cfg, frames, chunk=3):
+    """Phase 9: ScanPipeline against JointPipeline on the same frames."""
+    from jmodt_torch.pipeline import JointPipeline, ScanPipeline
+    model, head, kw = joint_parts(cfg)
+    common = dict(feat_dim=cfg.RCNN.SA_CONFIG.MLPS[-1][-1],
+                  max_tracks=JOINT['max_tracks'], **kw)
+    scan = ScanPipeline(cfg, model, head, chunk=chunk, **common)
+    pipe = JointPipeline(cfg, model, head, fetch_lag=1, **common)
+    got, want = [], []
+    for i, f in enumerate(frames):
+        args = (i + 1, f['pts_input'], f['img'], f['pts_xy'])
+        got.extend(scan.push(*args))
+        r = pipe.push(*args)
+        if r is not None:
+            want.append(r)
+    got.extend(scan.flush())
+    want.extend(pipe.flush())
+    ids = [fid for fid, _ in got]
+    check(ids == [fid for fid, _ in want] == list(range(1, len(frames) + 1)),
+          f'scan: frame ids {ids}')
+    err, rows = 0.0, 0
+    for (fid, grows), (_, wrows) in zip(got, want):
+        check([r[0] for r in grows] == [r[0] for r in wrows],
+              f'scan frame {fid}: tids {[r[0] for r in grows]} vs '
+              f'{[r[0] for r in wrows]}')
+        for (_, gbox, _), (_, wbox, _) in zip(grows, wrows):
+            err = max(err, scale_err(torch.as_tensor(gbox),
+                                     torch.as_tensor(wbox)))
+        rows += len(grows)
+    check(err <= NET_TOL, f'scan: boxes err {err}')
+    check(rows > 0, 'scan: no row emitted')
+    return err, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -526,7 +745,7 @@ def main() -> int:
     step = make_detection_step(cfg, model)
     print('[2 kernels] inputs recorded from one detection step; kernel vs '
           'plain version:', flush=True)
-    agg = check_kernels(record_kernel_inputs(step, frames[3]))
+    agg = check_kernels(record_kernel_inputs(step, model, frames[3]))
 
     ms, counts, _ = run_step(step, frames[:3])
     print(f'[3 step] default Config (bfloat16), 3 frames: {ms:.2f} ms/frame'
@@ -556,6 +775,24 @@ def main() -> int:
           f'equal ({jemit} rows emitted); boxes / scores errors '
           + ', '.join(f'{e:.3g}' for e in jerrs), flush=True)
 
+    bjoint = build_joint(mcfg, batched=True)
+    bms, bcounts, brows = run_batched(bjoint, mcfg, frames)
+    del bjoint
+    print(f'[8 streams] make_batched_joint_step, S={STREAMS} (bfloat16), 3 '
+          f'lockstep frames: {bms:.2f} ms a lockstep frame, '
+          f'{bms / STREAMS:.2f} ms a stream-frame, {brows:.2f} rows emitted '
+          f'a lockstep frame, {HOST_READS} tracker host reads a frame; '
+          f'launches {bcounts}', flush=True)
+    berrs, bemit = batched_parity(frames)
+    print('[8 streams] float32 S=2 lockstep vs independent joint steps, 2 '
+          f'frames: tid, emit equal ({bemit} rows emitted); boxes / scores '
+          'errors ' + ', '.join(f'{e:.3g}' for e in berrs), flush=True)
+
+    serr, srows = scan_vs_joint(mcfg, frames)
+    print(f'[9 scan] ScanPipeline (chunk 3, 4 frames, ragged tail) vs '
+          f'JointPipeline: frame ids and tids equal ({srows} rows), boxes '
+          f'err {serr:.3g}', flush=True)
+
     rows = []
     for k in KERNELS:
         a = agg[k['name']]
@@ -563,7 +800,8 @@ def main() -> int:
             'name': k['name'], 'route': 'cuda', 'source': k['source'],
             'replaces': k['replaces'], 'launches': jcounts[k['counter']],
             'launches_by_path': {'detection': counts.get(k['counter'], 0),
-                                 'joint': jcounts[k['counter']]},
+                                 'joint': jcounts[k['counter']],
+                                 'batched': bcounts[k['counter']]},
             'max_abs_err': a['max_abs_err'], 'ms': a['ms'],
             'plain_ms': a['plain_ms'],
             'bound_ms': max(a['t_ops'], a['t_bytes']) * 1e3,
@@ -572,6 +810,9 @@ def main() -> int:
             'library_ms': a['library_ms']})
         if 'default_ms' in a:
             rows[-1]['default_path_ms'] = a['default_ms']
+        if 'deconv_ms' in a:
+            rows[-1]['deconv_ms'] = a['deconv_ms']
+            rows[-1]['deconv_library_ms'] = a['deconv_library_ms']
     print(json.dumps({'kernels': rows}))
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,

@@ -37,8 +37,9 @@ class LIFusionConfig:
     DeConv_Reduce: Tuple[int, ...] = (16, 16, 16, 16)
     DeConv_Kernels: Tuple[int, ...] = (2, 4, 8, 16)
     DeConv_Strides: Tuple[int, ...] = (2, 4, 8, 16)
-    # eval-only fused pyramid->gather in the JAX package; the port always
-    # takes the materialize-then-sample path (the default)
+    # eval-only fused pyramid->gather in the JAX package; its eval mode is
+    # still to be ported, so the port always takes the materialize-then-
+    # sample path (the default)
     FUSED_PYRAMID: bool = False
 
 
@@ -99,8 +100,9 @@ class RPNConfig:
     # fused gather->MLP->max eval path (ops/fused_sa.py) for the MSG SA
     # levels with N <= 8192 (levels 1-3; level 0 stays on the plain path)
     FUSED_SA: bool = True
-    # whole-level SA kernel (FPS + ball query + gather + MLP + max); not
-    # ported yet, so the port raises if it is switched on
+    # whole-level SA kernel (FPS + ball query + gather + MLP + max) for the
+    # levels the fused path takes; K5 (jmodt_torch/csrc/sa_level.cu) on a
+    # CUDA tensor
     MEGA_SA: bool = False
 
 

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from jmodt_torch.models.layers import BatchNorm
+from jmodt_torch.ops.depth_to_space import depth_to_space
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -63,7 +64,12 @@ def feature_gather(feature_map: torch.Tensor, xy: torch.Tensor
 
 
 class NonOverlapDeconv(nn.Module):
-    """ConvTranspose2d with kernel == stride, NHWC in and out."""
+    """ConvTranspose2d with kernel == stride, NHWC in and out, computed as
+    the JAX package does: one matmul of every input pixel to its k*k output
+    taps, (B*H*W, C) @ (C, k*k*R), then the depth-to-space move with the
+    bias (K6 on a CUDA tensor).  The weight keeps ConvTranspose2d's layout
+    (Cin, Cout, k, k); its (Cin, k, k, Cout) permutation is the JAX
+    package's tap-major matrix."""
 
     def __init__(self, cin: int, features: int, kernel: int,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -75,9 +81,14 @@ class NonOverlapDeconv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        return _nhwc(F.conv_transpose2d(_nchw(x.to(dt)), self.weight.to(dt),
-                                        self.bias.to(dt), stride=self.kernel))
+        dt, k = self.dtype, self.kernel
+        b, h, w, c = x.shape
+        r = self.bias.shape[0]
+        wmat = self.weight.permute(0, 2, 3, 1).reshape(c, k * k * r)
+        taps = torch.matmul(x.reshape(b * h * w, c).to(dt), wmat.to(dt))
+        out = depth_to_space(taps.reshape(b, h * w, k * k * r), k, r, h, w,
+                             self.bias.to(dt))
+        return out.reshape(b, h * k, w * k, r)
 
 
 class ImagePyramidFusion(nn.Module):

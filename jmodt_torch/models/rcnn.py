@@ -40,11 +40,12 @@ def masked_bidirectional_softmax(scores: torch.Tensor,
                                  row_valid: torch.Tensor,
                                  col_valid: torch.Tensor) -> torch.Tensor:
     """(softmax over valid columns + softmax over valid rows) / 2 on the
-    valid sub-matrix of `scores` (P, D), zero elsewhere.  Invalid entries
-    are filled with -1e9, not -inf, so an all-invalid row stays finite."""
-    ok = row_valid[:, None] & col_valid[None, :]
+    valid sub-matrix of `scores` (..., P, D), zero elsewhere; leading dims
+    are a batch.  Invalid entries are filled with -1e9, not -inf, so an
+    all-invalid row stays finite."""
+    ok = row_valid[..., :, None] & col_valid[..., None, :]
     masked = torch.where(ok, scores, torch.full_like(scores, -1e9))
-    out = (torch.softmax(masked, dim=1) + torch.softmax(masked, dim=0)) / 2
+    out = (torch.softmax(masked, dim=-1) + torch.softmax(masked, dim=-2)) / 2
     return torch.where(ok, out, torch.zeros_like(out))
 
 

@@ -27,31 +27,31 @@ def rotate_points_along_y(pts: torch.Tensor, angle: torch.Tensor
 
 
 def boxes3d_to_corners3d(boxes3d: torch.Tensor) -> torch.Tensor:
-    """(N, 7) boxes -> (N, 8, 3) corners: the bottom face (y = y_c) first,
+    """(..., 7) boxes -> (..., 8, 3) corners: the bottom face (y = y_c) first,
     then the top face (y = y_c - h), each going (+l/2, +w/2), (+l/2, -w/2),
     (-l/2, -w/2), (-l/2, +w/2) in local (x = length, z = width) coordinates
     before the ry rotation x' = c x + s z, z' = -s x + c z."""
-    h, w, l = boxes3d[:, 3], boxes3d[:, 4], boxes3d[:, 5]
+    h, w, l = boxes3d[..., 3], boxes3d[..., 4], boxes3d[..., 5]
     zeros = torch.zeros_like(l)
     x_c = torch.stack([l / 2, l / 2, -l / 2, -l / 2,
-                       l / 2, l / 2, -l / 2, -l / 2], dim=1)
-    y_c = torch.stack([zeros, zeros, zeros, zeros, -h, -h, -h, -h], dim=1)
+                       l / 2, l / 2, -l / 2, -l / 2], dim=-1)
+    y_c = torch.stack([zeros, zeros, zeros, zeros, -h, -h, -h, -h], dim=-1)
     z_c = torch.stack([w / 2, -w / 2, -w / 2, w / 2,
-                       w / 2, -w / 2, -w / 2, w / 2], dim=1)
-    c = torch.cos(boxes3d[:, 6])[:, None]
-    s = torch.sin(boxes3d[:, 6])[:, None]
+                       w / 2, -w / 2, -w / 2, w / 2], dim=-1)
+    c = torch.cos(boxes3d[..., 6])[..., None]
+    s = torch.sin(boxes3d[..., 6])[..., None]
     x_r = c * x_c + s * z_c
     z_r = -s * x_c + c * z_c
-    return torch.stack([x_r, y_c, z_r], dim=2) + boxes3d[:, None, 0:3]
+    return torch.stack([x_r, y_c, z_r], dim=-1) + boxes3d[..., None, 0:3]
 
 
 def boxes3d_to_bev(boxes3d: torch.Tensor) -> torch.Tensor:
     """Boxes to BEV [x1, y1, x2, y2, ry] in the x-z plane: the unrotated
     extent centered at (x, z); the rotated IoU re-applies ry."""
-    cu, cv = boxes3d[:, 0], boxes3d[:, 2]
-    half_l, half_w = boxes3d[:, 5] / 2, boxes3d[:, 4] / 2
+    cu, cv = boxes3d[..., 0], boxes3d[..., 2]
+    half_l, half_w = boxes3d[..., 5] / 2, boxes3d[..., 4] / 2
     return torch.stack([cu - half_l, cv - half_w, cu + half_l, cv + half_w,
-                        boxes3d[:, 6]], dim=1)
+                        boxes3d[..., 6]], dim=-1)
 
 
 def enlarge_box3d(boxes3d: torch.Tensor, extra_width: float) -> torch.Tensor:
@@ -64,12 +64,12 @@ def enlarge_box3d(boxes3d: torch.Tensor, extra_width: float) -> torch.Tensor:
 
 def height_overlap(boxes_a: torch.Tensor, boxes_b: torch.Tensor
                    ) -> torch.Tensor:
-    """Pairwise vertical (y) overlap length, (M, 7) x (N, 7) -> (M, N);
-    a box spans [y - h, y]."""
-    a_min = (boxes_a[:, 1] - boxes_a[:, 3])[:, None]
-    a_max = boxes_a[:, 1][:, None]
-    b_min = (boxes_b[:, 1] - boxes_b[:, 3])[None, :]
-    b_max = boxes_b[:, 1][None, :]
+    """Pairwise vertical (y) overlap length, (..., M, 7) x (..., N, 7) ->
+    (..., M, N); a box spans [y - h, y]."""
+    a_min = (boxes_a[..., 1] - boxes_a[..., 3])[..., :, None]
+    a_max = boxes_a[..., 1][..., :, None]
+    b_min = (boxes_b[..., 1] - boxes_b[..., 3])[..., None, :]
+    b_max = boxes_b[..., 1][..., None, :]
     return torch.clamp(torch.minimum(a_max, b_max)
                        - torch.maximum(a_min, b_min), min=0.0)
 
@@ -77,14 +77,14 @@ def height_overlap(boxes_a: torch.Tensor, boxes_b: torch.Tensor
 def boxes_center_dist_affinity(boxes_a: torch.Tensor, boxes_b: torch.Tensor
                                ) -> torch.Tensor:
     """1 - |center_a - center_b| / (the largest corner-to-corner distance
-    of the pair), (M, 7) x (N, 7) -> (M, N)."""
-    ca = boxes3d_to_corners3d(boxes_a)                       # (M, 8, 3)
-    cb = boxes3d_to_corners3d(boxes_b)                       # (N, 8, 3)
-    center = torch.linalg.norm(boxes_a[:, None, :3] - boxes_b[None, :, :3],
-                               dim=-1)
-    corner = torch.linalg.norm(ca[:, None, :, None, :]
-                               - cb[None, :, None, :, :], dim=-1)
-    corner = corner.reshape(corner.shape[0], corner.shape[1], 64).amax(-1)
+    of the pair), (..., M, 7) x (..., N, 7) -> (..., M, N)."""
+    ca = boxes3d_to_corners3d(boxes_a)                  # (..., M, 8, 3)
+    cb = boxes3d_to_corners3d(boxes_b)                  # (..., N, 8, 3)
+    center = torch.linalg.norm(boxes_a[..., :, None, :3]
+                               - boxes_b[..., None, :, :3], dim=-1)
+    corner = torch.linalg.norm(ca[..., :, None, :, None, :]
+                               - cb[..., None, :, None, :, :], dim=-1)
+    corner = corner.flatten(-2).amax(-1)
     return 1.0 - center / corner
 
 

@@ -30,7 +30,7 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 _BUILD = Path(__file__).resolve().parents[2] / 'build'
 _SOURCES = ('fps.cu', 'three_nn.cu', 'grouped_gather_mlp.cu',
-            'sa_level.cu')
+            'sa_level.cu', 'depth_to_space.cu')
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-Xcompiler', '-fPIC')
 
@@ -49,6 +49,7 @@ _SIGNATURES = {
                        ctypes.POINTER(_P), ctypes.POINTER(_P), _P,
                        ctypes.POINTER(_P), ctypes.POINTER(_P),
                        ctypes.POINTER(_P), _P, _P, _P, _P),
+    'jmodt_depth_to_space': (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 launches: collections.Counter = collections.Counter()

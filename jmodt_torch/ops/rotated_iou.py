@@ -113,8 +113,9 @@ def _area(boxes: torch.Tensor) -> torch.Tensor:
 
 def boxes_overlap_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor
                       ) -> torch.Tensor:
-    """Pairwise rotated intersection areas, (M, 5) x (N, 5) -> (M, N)."""
-    return box_overlap_bev(boxes_a[:, None, :], boxes_b[None, :, :])
+    """Pairwise rotated intersection areas, (..., M, 5) x (..., N, 5) ->
+    (..., M, N)."""
+    return box_overlap_bev(boxes_a[..., :, None, :], boxes_b[..., None, :, :])
 
 
 def boxes_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor
@@ -144,10 +145,12 @@ def boxes_iou_normal(boxes_a: torch.Tensor, boxes_b: torch.Tensor
 def boxes_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor
                 ) -> torch.Tensor:
     """Pairwise 3D IoU: rotated BEV overlap x height overlap over the
-    volume union, (M, 7) x (N, 7) [x, y, z, h, w, l, ry] -> (M, N)."""
+    volume union, (..., M, 7) x (..., N, 7) [x, y, z, h, w, l, ry] ->
+    (..., M, N)."""
     overlap = (boxes_overlap_bev(boxes3d_to_bev(boxes_a),
                                  boxes3d_to_bev(boxes_b))
                * height_overlap(boxes_a, boxes_b))
-    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
-    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    vol_a = boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5]
+    vol_b = boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5]
+    vol_a, vol_b = vol_a[..., :, None], vol_b[..., None, :]
     return overlap / torch.clamp(vol_a + vol_b - overlap, min=1e-7)

@@ -2,9 +2,12 @@
 `jmodt_tpu/ops/sampling.py`).
 
 On a CUDA tensor `farthest_point_sample` launches a hand-written kernel
-(`jmodt_torch/csrc/fps.cu`): K1 for one cloud (replaces
-`jmodt_tpu/ops/pallas/fps.py::farthest_point_sample_pallas`), K2 for B > 1
-clouds (replaces `farthest_point_sample_batched_pallas`).  On a CPU tensor
+(`jmodt_torch/csrc/fps.cu`): K2, one warp a cloud (replaces
+`jmodt_tpu/ops/pallas/fps.py::farthest_point_sample_batched_pallas`), for
+B > 1 clouds of at most 1024 points (the RCNN's RoI clouds); K1, one block
+a cloud (replaces `farthest_point_sample_pallas`), for every other batch
+and size up to `FPS_MAX_POINTS` (the RPN's level 0 at any number of
+streams).  On a CPU tensor
 it runs `farthest_point_sample_plain`, the same arithmetic as a loop of
 tensor ops, which is also what the kernels are checked against on the card.
 
@@ -56,18 +59,15 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     if not 1 <= npoint <= n:
         raise ValueError(f'npoint={npoint} must be in [1, N={n}]')
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
-    if b == 1:
+    if b > 1 and n <= FPS_WARP_MAX_POINTS:
+        kernels.launch('fps_batched', 'jmodt_fps_warp', xyz.data_ptr(), b,
+                       n, npoint, out.data_ptr())
+    else:
         if n > FPS_MAX_POINTS:
             raise ValueError(f'K1 FPS holds at most {FPS_MAX_POINTS} points '
                              f'in shared memory, got N={n}')
         kernels.launch('fps', 'jmodt_fps', xyz.data_ptr(), b, n, npoint,
                        out.data_ptr())
-    else:
-        if n > FPS_WARP_MAX_POINTS:
-            raise ValueError(f'K2 FPS holds at most {FPS_WARP_MAX_POINTS} '
-                             f'points a cloud, got N={n}')
-        kernels.launch('fps_batched', 'jmodt_fps_warp', xyz.data_ptr(), b,
-                       n, npoint, out.data_ptr())
     return out
 
 

@@ -1,25 +1,29 @@
 """Where a frame's time goes on the CUDA card.
 
-    python3 -m jmodt_torch.profile_step [--path joint|detection]
-                                        [--frames N] [--dtype bfloat16]
+    python3 -m jmodt_torch.profile_step [--path joint|batched|detection]
+                                        [--streams S] [--frames N]
+                                        [--dtype bfloat16]
 
 `--path joint` (the default) runs the joint detect + track step at the
 default Config() with RPN.MEGA_SA (16384 points, 384x1280 uint8 image,
 detector weights from seed 0, a link head from seed 1, 64 track slots, the
 top 16 detections, score threshold 0.2, Hungarian assignment);
-`--path detection` runs the detection step alone at the default Config().
-Synthetic frames; one warm-up frame first.  Prints:
+`--path batched` runs the same step on `--streams` (default 4) streams in
+lockstep (`make_batched_joint_step`), a frame being one lockstep frame of
+all streams; `--path detection` runs the detection step alone at the
+default Config().  Synthetic frames; one warm-up frame first.  Prints:
 
 * stages: wall ms of each stage of one frame, with the device synchronized
   at every stage boundary (the syncs remove overlap, so the stages add up
-  to a little more than an unsynchronized frame).  Joint: detection, top-K
-  and packing, tracker; detection: the backbone's and heads' modules,
-  proposals, RoI pooling and the final NMS;
-* joint only: host syncs per frame, the tracker's own device-to-host reads
-  (`device_tracker.host_syncs`) and every synchronizing CUDA call of the
-  frame (torch's sync debug mode);
-* frame: unsynchronized wall ms per frame over N frames, the device time of
-  all kernels per frame from torch.profiler, and the device's idle share;
+  to a little more than an unsynchronized frame).  Joint and batched:
+  detection, top-K and packing, tracker; detection: the backbone's and
+  heads' modules, proposals, RoI pooling and the final NMS;
+* joint and batched: host syncs per frame, the tracker's own device-to-host
+  reads (`device_tracker.host_syncs`) and every synchronizing CUDA call of
+  the frame (torch's sync debug mode);
+* frame: unsynchronized wall ms per frame over N frames (batched: also per
+  stream-frame), the device time of all kernels per frame from
+  torch.profiler, and the device's idle share;
 * the kernels with the most device time per frame, and the host ops with
   the most CPU time.
 """
@@ -32,6 +36,7 @@ import dataclasses
 import time
 import warnings
 
+import numpy as np
 import torch
 
 
@@ -100,39 +105,49 @@ def _detection(cfg, times):
     return run, stages
 
 
-def _joint(cfg, times):
-    """(run(frame), stage setup -> undo) for the joint step, which numbers
-    the frames 1, 2, ... as they come.  The step is built twice, plain and
-    with synchronized timers around its detection and tracker steps (the
-    rest of a frame is top-K and packing)."""
+def _joint(cfg, times, streams=None):
+    """(run(frame), stage setup -> undo) for the joint step, or with
+    `streams` the lockstep step over that many streams, which numbers the
+    frames 1, 2, ... as they come.  The step is built twice, plain and with
+    synchronized timers around its detection and tracker steps (the rest of
+    a frame is top-K and packing)."""
     from jmodt_torch import pipeline
     from jmodt_torch.models.point_rcnn import build_detector, init_weights
     from jmodt_torch.models.rcnn import CorrelationHead
-    from jmodt_torch.tracking.device_tracker import init_state
+    from jmodt_torch.tracking.device_tracker import (init_batched_state,
+                                                     init_state)
 
     feat_dim = cfg.RCNN.SA_CONFIG.MLPS[-1][-1]
     model = build_detector(cfg, seed=0)
     head = CorrelationHead(feat_dim, cfg.REID.LINK_FC, use_bn=cfg.REID.USE_BN)
     init_weights(head, 1)
     kw = dict(track_k=16, det_score_thresh=0.2, assign='hungarian')
-    joint = pipeline.make_joint_step(cfg, model, head, **kw)
-    saved = (pipeline.make_detection_step, pipeline.make_device_tracker_step)
+    if streams is None:
+        make, trk = pipeline.make_joint_step, 'make_device_tracker_step'
+        state = [init_state(64, feat_dim), 0]   # tracker state, frame id
+    else:
+        make, trk = pipeline.make_batched_joint_step, \
+            'make_batched_tracker_step'
+        state = [init_batched_state(streams, 64, feat_dim), 0]
+    joint = make(cfg, model, head, **kw)
+    saved = (pipeline.make_detection_step, getattr(pipeline, trk))
     pipeline.make_detection_step = \
         lambda *a, **k: _timed(saved[0](*a, **k), times, 'detection')
-    pipeline.make_device_tracker_step = \
-        lambda *a, **k: _timed(saved[1](*a, **k), times, 'tracker')
+    setattr(pipeline, trk,
+            lambda *a, **k: _timed(saved[1](*a, **k), times, 'tracker'))
     try:
-        timed_joint = pipeline.make_joint_step(cfg, model, head, **kw)
+        timed_joint = make(cfg, model, head, **kw)
     finally:
-        pipeline.make_detection_step, pipeline.make_device_tracker_step = \
-            saved
-    state = [init_state(64, feat_dim), 0]       # tracker state, frame id
+        pipeline.make_detection_step = saved[0]
+        setattr(pipeline, trk, saved[1])
     use = [joint]
 
     def run(f):
         state[1] += 1
-        state[0], packed = use[0](state[0], state[1], f['pts_input'],
-                                  f['img'], f['pts_xy'])
+        fid = (state[1] if streams is None
+               else np.full(streams, state[1], np.int32))
+        state[0], packed = use[0](state[0], fid, f['pts_input'], f['img'],
+                                  f['pts_xy'])
         return packed
 
     def stages():
@@ -166,7 +181,10 @@ def _host_syncs(run, frames):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--path', default='joint', choices=('joint', 'detection'))
+    ap.add_argument('--path', default='joint',
+                    choices=('joint', 'batched', 'detection'))
+    ap.add_argument('--streams', type=int, default=4,
+                    help='streams of --path batched')
     ap.add_argument('--frames', type=int, default=3)
     ap.add_argument('--dtype', default='bfloat16',
                     choices=('bfloat16', 'float32'))
@@ -176,14 +194,22 @@ def main() -> None:
     from jmodt_torch.data.synthetic import make_eval_frame
 
     cfg = dataclasses.replace(Config(), DTYPE=args.dtype)
-    if args.path == 'joint':
+    if args.path != 'detection':
         cfg = dataclasses.replace(
             cfg, RPN=dataclasses.replace(cfg.RPN, MEGA_SA=True))
-    frames = [make_eval_frame(s, cfg, raw_u8=True)
-              for s in range(args.frames + 1)]
+    streams = args.streams if args.path == 'batched' else None
+    per = streams or 1
+    frames = []
+    for t in range(args.frames + 1):
+        fs = [make_eval_frame(t * per + s, cfg, raw_u8=True)
+              for s in range(per)]
+        frames.append({k: np.concatenate([f[k] for f in fs])
+                       for k in ('pts_input', 'img', 'pts_xy')})
     times = collections.defaultdict(float)
-    run, stages = (_joint if args.path == 'joint' else _detection)(cfg,
-                                                                    times)
+    if args.path == 'detection':
+        run, stages = _detection(cfg, times)
+    else:
+        run, stages = _joint(cfg, times, streams)
 
     run(frames[0])                                       # warm-up
     torch.cuda.synchronize()
@@ -198,16 +224,16 @@ def main() -> None:
         total = (time.perf_counter() - t0) * 1e3
     finally:
         undo()
-    rest = ('(rest: top-K, packing)' if args.path == 'joint'
-            else '(rest: decode, scoring, glue)')
-    print(f'stages of one synchronized {args.path} frame ({args.dtype}), '
-          'ms:')
+    rest = ('(rest: decode, scoring, glue)' if args.path == 'detection'
+            else '(rest: top-K, packing)')
+    what = args.path + (f', {streams} streams' if streams else '')
+    print(f'stages of one synchronized {what} frame ({args.dtype}), ms:')
     for name, ms in sorted(times.items(), key=lambda kv: -kv[1]):
         print(f'  {name:32s} {ms:9.3f}')
     print(f'  {rest:32s} {total - sum(times.values()):9.3f}')
     print(f'  {"total":32s} {total:9.3f}')
 
-    if args.path == 'joint':
+    if args.path != 'detection':
         trk, allsync = _host_syncs(run, frames[1:])
         print(f'host syncs per frame: tracker {trk:.1f} (device-to-host '
               f'reads), whole frame {allsync:.1f} (synchronizing CUDA calls, '
@@ -229,6 +255,9 @@ def main() -> None:
     print(f'frame: {wall:.3f} ms wall, {dev:.3f} ms of kernels on the '
           f'device, idle share {max(0.0, 1 - dev / wall):.3f} '
           f'({args.frames} frames, profiled)')
+    if streams:
+        print(f'stream-frame: {wall / streams:.3f} ms wall, '
+              f'{dev / streams:.3f} ms of kernels ({streams} streams)')
     print('kernels by device time per frame, ms:')
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:20]:
         print(f'  {e.self_device_time_total / 1e3 / args.frames:9.3f}  '

@@ -21,10 +21,16 @@ the JAX package pads them to 16 / 8 for the TPU's matrix unit, with exact
 zeros, so the arithmetic is the same.  Kalman products run in float32
 without TF32 (PyTorch's default for matmuls).
 
-Host syncs: the number of predict steps is read to the host (one read a
-frame), and the Jonker-Volgenant loops run over a host copy of the (T, D)
-affinity (one copy a frame for 'hungarian' and 'mip'), with the same
-float32 arithmetic as on the device.  `host_syncs` counts these reads.
+One step serves S independent streams in lockstep (the JAX package's vmap
+of its single-stream step, written out as a leading S axis on the state
+and every tensor); the single-stream step runs it with S = 1.
+
+Host syncs: the predict steps of the S streams are read to the host (one
+read a frame: the Kalman loop runs to the largest count and masks each
+stream), and the Jonker-Volgenant loops run, stream after stream, over one
+host copy of the (S, T, D) affinity (one copy a frame for 'hungarian' and
+'mip'), with the same float32 arithmetic as on the device.  `host_syncs`
+counts these reads.
 """
 
 from __future__ import annotations
@@ -121,24 +127,37 @@ def _wrap(theta: torch.Tensor) -> torch.Tensor:
 
 def _set_col(x: torch.Tensor, col: int, val: torch.Tensor) -> torch.Tensor:
     x = x.clone()
-    x[:, col] = val
+    x[..., col] = val
     return x
 
 
-def _kalman_predict(mean, cov, steps: int, mats: KalmanMats):
-    """Advance every slot `steps` (>= 1) constant-velocity steps."""
-    for _ in range(max(steps, 1)):
-        mean = mean @ mats.f.T
-        cov = torch.matmul(torch.matmul(mats.f, cov), mats.f.T) + mats.q
-    return _set_col(mean, 6, _wrap(mean[:, 6])), cov
+def _kalman_predict(mean, cov, steps: torch.Tensor, mats: KalmanMats):
+    """Advance the slots of each stream `steps` (>= 1) constant-velocity
+    steps.  mean (..., T, 10), cov (..., T, 10, 10), steps an int tensor
+    with the leading dims of `mean` (one count a stream).  The counts are
+    read to the host once: the loop runs to the largest count and each
+    stream keeps the state of its own count."""
+    steps = torch.clamp(steps, min=1)
+    host = _to_host(steps)
+    lo, hi = int(host.min()), int(host.max())
+    for i in range(hi):
+        m = mean @ mats.f.T
+        c = torch.matmul(torch.matmul(mats.f, cov), mats.f.T) + mats.q
+        if i < lo:
+            mean, cov = m, c
+        else:
+            go = (steps > i)[..., None, None]
+            mean, cov = torch.where(go, m, mean), torch.where(go[..., None],
+                                                              c, cov)
+    return _set_col(mean, 6, _wrap(mean[..., 6])), cov
 
 
 def _kalman_update(mean, cov, z7, apply_mask, mats: KalmanMats):
     """Measurement update with the orientation corrections (wrap, flip by
     pi when the angles differ by more than pi / 2, and the 2 pi case),
-    applied where `apply_mask`.  z7: (T, 7) measurements."""
-    x6 = _wrap(mean[:, 6])
-    z6 = _wrap(z7[:, 6])
+    applied where `apply_mask`.  z7: (..., T, 7) measurements."""
+    x6 = _wrap(mean[..., 6])
+    z6 = _wrap(z7[..., 6])
     diff = (z6 - x6).abs()
     flip = (diff > math.pi / 2) & (diff < math.pi * 3 / 2)
     x6 = torch.where(flip, _wrap(x6 + math.pi), x6)
@@ -156,22 +175,15 @@ def _kalman_update(mean, cov, z7, apply_mask, mats: KalmanMats):
                      torch.linalg.inv_ex(s).inverse)
     new_mean = mean + torch.matmul(k, y[..., None])[..., 0]
     new_cov = cov - torch.matmul(k, torch.matmul(mats.h, cov))
-    new_mean = _set_col(new_mean, 6, _wrap(new_mean[:, 6]))
-    m = apply_mask[:, None]
+    new_mean = _set_col(new_mean, 6, _wrap(new_mean[..., 6]))
+    m = apply_mask[..., None]
     return (torch.where(m, new_mean, mean),
             torch.where(m[..., None], new_cov, cov))
 
 
-def _lap_assign(affinity: torch.Tensor, match_thresh: float):
-    """Exact max-weight bipartite matching, Jonker-Volgenant shortest
-    augmenting paths, one augmentation per detection.
-
-    affinity (T, D) with -inf for invalid pairs, T >= D; returns (track ->
-    det (T,) int32, -1 unmatched; det -> track (D,) int32).  The loops run
-    on a host copy of the matrix (one read for a CUDA tensor); the results
-    go back to the matrix's device.
-    """
-    t, d = affinity.shape
+def _jonker_volgenant(aff: torch.Tensor, match_thresh: float):
+    """`_lap_assign` of one (T, D) CPU matrix; CPU results."""
+    t, d = aff.shape
     assert t >= d, 'lap assumes at least as many track slots as dets'
     # Finite stand-in for gated pairs, filtered at the end.  It must stay
     # small against float32 precision: once an augmenting path ends in a
@@ -180,7 +192,6 @@ def _lap_assign(affinity: torch.Tensor, match_thresh: float):
     # affinity range; at 1e4 the ulp is about 1e-3.
     big = 1e4
     inf = 1e30     # scan mask
-    aff = _to_host(affinity)
     aff = torch.where(torch.isfinite(aff), aff, torch.full_like(aff, -big))
     cost = -aff.T                                       # (D, T), minimize
     v = torch.zeros(t)
@@ -221,10 +232,26 @@ def _lap_assign(affinity: torch.Tensor, match_thresh: float):
                            > match_thresh)
     keep_d = (d2t >= 0) & (aff[d2t.clamp(min=0).long(), torch.arange(d)]
                            > match_thresh)
-    t2d = torch.where(keep_t, t2d, -1)
-    d2t = torch.where(keep_d, d2t, -1)
+    return torch.where(keep_t, t2d, -1), torch.where(keep_d, d2t, -1)
+
+
+def _lap_assign(affinity: torch.Tensor, match_thresh: float):
+    """Exact max-weight bipartite matching, Jonker-Volgenant shortest
+    augmenting paths, one augmentation per detection.
+
+    affinity (..., T, D) with -inf for invalid pairs, T >= D; leading dims
+    are independent streams.  Returns (track -> det (..., T) int32, -1
+    unmatched; det -> track (..., D) int32).  The loops run, stream after
+    stream, on one host copy of the whole tensor (one read for a CUDA
+    tensor); the results go back to the tensor's device.
+    """
+    t, d = affinity.shape[-2:]
+    aff = _to_host(affinity).reshape(-1, t, d)
+    t2d, d2t = zip(*(_jonker_volgenant(a, match_thresh) for a in aff))
+    lead = affinity.shape[:-2]
     dev = affinity.device
-    return t2d.to(dev), d2t.to(dev)
+    return (torch.stack(t2d).reshape(*lead, t).to(dev),
+            torch.stack(d2t).reshape(*lead, d).to(dev))
 
 
 def mip_assign(combined, pred_score, det_score, start, end, active,
@@ -234,82 +261,100 @@ def mip_assign(combined, pred_score, det_score, start, end, active,
     weights w_jk = cls_j + cls_k + link_jk - out_j - out_k, with a personal
     zero-value dummy row per detection ("stay unmatched").
 
-    combined: (T, D) w_app*link + w_iou*iou + w_dis*dist; pred_score (T,),
-    det_score (D,), start (D,), end (T,) sigmoid scores; active (T,) /
-    det_mask (D,) validity.  Returns (t2d (T,), d2t (D,) int32 with -1
-    unmatched, live_new (D,) bool: an unmatched det that starts a live
-    track; False means tentative).
+    combined: (..., T, D) w_app*link + w_iou*iou + w_dis*dist; pred_score
+    (..., T), det_score (..., D), start (..., D), end (..., T) sigmoid
+    scores; active (..., T) / det_mask (..., D) validity; leading dims are
+    streams.  Returns (t2d (..., T), d2t (..., D) int32 with -1 unmatched,
+    live_new (..., D) bool: an unmatched det that starts a live track;
+    False means tentative).
     """
-    t, d = combined.shape
+    t, d = combined.shape[-2:]
     cls_t = w_cls * (pred_score - 1.0)
     cls_d = w_cls * (det_score - 1.0)
     out_t = torch.clamp(cls_t + w_se * end, min=0.0)            # (T,)
     out_d = torch.clamp(cls_d + w_se * start, min=0.0)          # (D,)
-    w = (combined + cls_t[:, None] + cls_d[None, :]
-         - out_t[:, None] - out_d[None, :])
+    w = (combined + cls_t[..., :, None] + cls_d[..., None, :]
+         - out_t[..., :, None] - out_d[..., None, :])
     neg_inf = torch.full_like(w, -math.inf)
-    w = torch.where(active[:, None] & det_mask[None, :], w, neg_inf)
+    w = torch.where(active[..., :, None] & det_mask[..., None, :], w, neg_inf)
     eye = torch.eye(d, dtype=torch.bool, device=w.device)
-    dummy = torch.where(eye & det_mask[None, :], 0.0, -math.inf)
+    dummy = torch.where(eye & det_mask[..., None, :], 0.0, -math.inf)
     # threshold 0: the optimum holds no w < 0 pair (the dummy dominates);
     # dummy matches sit at exactly 0 and are filtered to "unmatched"
-    t2d_aug, d2t_aug = _lap_assign(torch.cat([w, dummy], dim=0), 0.0)
-    t2d = t2d_aug[:t]
+    t2d_aug, d2t_aug = _lap_assign(torch.cat([w, dummy], dim=-2), 0.0)
+    t2d = t2d_aug[..., :t]
     d2t = torch.where(d2t_aug < t, d2t_aug, -1)
     live_new = det_mask & (d2t < 0) & (cls_d + w_se * start > 0)
     return t2d, d2t, live_new
 
 
 def _greedy_assign(affinity: torch.Tensor, match_thresh: float):
-    """Best-first matching on a gated affinity (T, D) with -inf for invalid
-    pairs; returns (track -> det (T,), det -> track (D,)) int32, -1
-    unmatched.  min(T, D) rounds of tensor ops, no host read."""
-    t, d = affinity.shape
+    """Best-first matching on a gated affinity (..., T, D) with -inf for
+    invalid pairs, leading dims independent streams; returns (track -> det
+    (..., T), det -> track (..., D)) int32, -1 unmatched.  min(T, D) rounds
+    of tensor ops, no host read."""
+    t, d = affinity.shape[-2:]
+    lead = affinity.shape[:-2]
     dev = affinity.device
     rows = torch.arange(t, device=dev)
     cols = torch.arange(d, device=dev)
     aff = affinity.clone()
-    t2d = torch.full((t,), -1, dtype=torch.int32, device=dev)
-    d2t = torch.full((d,), -1, dtype=torch.int32, device=dev)
+    t2d = torch.full((*lead, t), -1, dtype=torch.int32, device=dev)
+    d2t = torch.full((*lead, d), -1, dtype=torch.int32, device=dev)
     for _ in range(min(t, d)):
-        flat = torch.argmax(aff)                     # the first maximum
-        ti, di = flat // d, flat % d
-        ok = aff[ti, di] > match_thresh
+        flat = aff.flatten(-2)
+        best = torch.argmax(flat, dim=-1, keepdim=True)   # the first maximum
+        ok = flat.gather(-1, best) > match_thresh           # (..., 1)
+        ti, di = best // d, best % d
         t2d = torch.where(ok & (rows == ti), di.to(torch.int32), t2d)
         d2t = torch.where(ok & (cols == di), ti.to(torch.int32), d2t)
-        hit = ok & ((rows[:, None] == ti) | (cols[None, :] == di))
+        hit = ok[..., None] & ((rows[:, None] == ti[..., None])
+                               | (cols == di[..., None]))
         aff = torch.where(hit, -math.inf, aff)
     return t2d, d2t
 
 
 def _scatter_drop(dest: torch.Tensor, dst: torch.Tensor,
                   src: torch.Tensor) -> torch.Tensor:
-    """dest with rows dst[i] < T set to src[i]; rows with dst[i] == T are
-    dropped (they land in a spill row that is cut off)."""
-    ext = torch.cat([dest, dest[:1]], dim=0)
-    ext[dst.long()] = src.to(dest.dtype)
-    return ext[:-1]
+    """dest (S, T, ...) with rows dst[s, i] < T set to src[s, i]; rows with
+    dst[s, i] == T are dropped (they land in a spill row of their stream
+    that is cut off)."""
+    ext = torch.cat([dest, dest[:, :1]], dim=1)
+    streams = torch.arange(dest.shape[0], device=dest.device)[:, None]
+    ext[streams, dst.long()] = src.to(dest.dtype)
+    return ext[:, :-1]
 
 
-def make_device_tracker_step(link_head: nn.Module, t_miss: int = 2,
-                             t_hit: int = 0, w_app: float = 2.0,
-                             w_iou: float = 10.0, w_dis: float = 10.0,
-                             score_thresh: float = 0.0,
-                             match_thresh: float = 0.0,
-                             assign: str = 'hungarian',
-                             se_head: Optional[nn.Module] = None,
-                             w_cls: float = 100.0, w_se: float = 1.0,
-                             device=None):
-    """The per-frame step on `device` (default: the CUDA card; raises
-    without one), to which the heads are moved.
+def init_batched_state(n_seqs: int, max_tracks: int, feat_dim: int,
+                       device=None) -> TrackerState:
+    """`n_seqs` empty stores with a leading stream axis on every field but
+    the Kalman matrices, which the streams share, on `device` (default:
+    the CUDA card; raises without one)."""
+    state = init_state(max_tracks, feat_dim, device)
+    return state._replace(**{
+        k: v.expand(n_seqs, *v.shape).clone()
+        for k, v in state._asdict().items() if k != 'mats'})
 
-    `link_head` maps (..., C) correlation features |feat_t - feat_d| to
-    (..., 1) scores; `se_head` (needed by assign='mip') scores start / end
-    features the same way.
 
-    step(state, frame_id, det_boxes (D, 7), det_scores (D,), det_feats
-    (D, C), det_mask (D,)) -> (state, output), output a dict of 'tid' (T,),
-    'box' (T, 7), 'score' (T,), 'det_idx' (T,) and 'emit' (T,) bool.
+def make_batched_tracker_step(link_head: nn.Module, t_miss: int = 2,
+                              t_hit: int = 0, w_app: float = 2.0,
+                              w_iou: float = 10.0, w_dis: float = 10.0,
+                              score_thresh: float = 0.0,
+                              match_thresh: float = 0.0,
+                              assign: str = 'hungarian',
+                              se_head: Optional[nn.Module] = None,
+                              w_cls: float = 100.0, w_se: float = 1.0,
+                              device=None):
+    """The per-frame step of S independent streams in lockstep on `device`
+    (default: the CUDA card; raises without one), to which the heads are
+    moved.  Streams of different lengths pad with empty frames (det_mask
+    all False), which leave a stream's tracks as they were.
+
+    step(states, frame_ids (S,), det_boxes (S, D, 7), det_scores (S, D),
+    det_feats (S, D, C), det_mask (S, D)) -> (states, outputs), states from
+    `init_batched_state` and every output with a leading S axis.  A frame
+    reads the device twice, whatever S is ('greedy': once): the (S,)
+    predict steps and, for 'hungarian' and 'mip', the (S, T, D) affinity.
     """
     assert assign in ('mip', 'hungarian', 'greedy'), assign
     if assign == 'mip':
@@ -323,55 +368,54 @@ def make_device_tracker_step(link_head: nn.Module, t_miss: int = 2,
     @torch.no_grad()
     def step(state: TrackerState, frame_id, det_boxes, det_scores,
              det_feats, det_mask):
-        det_boxes = torch.as_tensor(det_boxes, dtype=torch.float32,
-                                    device=dev)
-        det_scores = torch.as_tensor(det_scores, dtype=torch.float32,
-                                     device=dev)
-        det_feats = torch.as_tensor(det_feats, dtype=torch.float32,
-                                    device=dev)
-        det_mask = torch.as_tensor(det_mask, dtype=torch.bool, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
         frame_id = torch.as_tensor(frame_id, dtype=torch.int32, device=dev)
-        tcap, ndet = state.tid.shape[0], det_boxes.shape[0]
-        active = state.tid > 0
-        any_det = det_mask.any()
+        det_boxes = torch.as_tensor(det_boxes, **f32)
+        det_scores = torch.as_tensor(det_scores, **f32)
+        det_feats = torch.as_tensor(det_feats, **f32)
+        det_mask = torch.as_tensor(det_mask, dtype=torch.bool, device=dev)
+        n_seq, tcap = state.tid.shape
+        ndet = det_boxes.shape[1]
+        active = state.tid > 0                                    # (S, T)
+        any_det = det_mask.any(-1)                                # (S,)
         passed = torch.where(any_det, frame_id - state.last_frame_idx, 0)
         frame_count = state.frame_count + passed
         last_frame_idx = torch.where(any_det, frame_id,
                                      state.last_frame_idx)
 
         # ---- predict (misses += passed) ----
-        do_predict = any_det & active.any()
-        steps = torch.where(do_predict, passed, 1)
+        do_predict = any_det & active.any(-1)
         pm, pc = _kalman_predict(state.mean, state.cov,
-                                 int(_to_host(steps)), state.mats)
-        upd = do_predict & active
-        mean = torch.where(upd[:, None], pm, state.mean)
-        cov = torch.where(upd[:, None, None], pc, state.cov)
-        misses = torch.where(any_det & active, state.misses + passed,
-                             state.misses)
+                                 torch.where(do_predict, passed, 1),
+                                 state.mats)
+        upd = do_predict[:, None] & active
+        mean = torch.where(upd[..., None], pm, state.mean)
+        cov = torch.where(upd[..., None, None], pc, state.cov)
+        misses = torch.where(any_det[:, None] & active,
+                             state.misses + passed[:, None], state.misses)
 
         # ---- affinity ----
-        pred_boxes = mean[:, :7]
-        cor = (state.feat[:, None, :] - det_feats[None, :, :]).abs()
-        link_raw = link_head(cor)[..., 0]
+        pred_boxes = mean[..., :7]
+        cor = (state.feat[:, :, None, :] - det_feats[:, None, :, :]).abs()
+        link_raw = link_head(cor)[..., 0]                         # (S, T, D)
         link = masked_bidirectional_softmax(link_raw, active, det_mask)
         iou = boxes_iou3d(pred_boxes, det_boxes)
         dis = boxes_center_dist_affinity(pred_boxes, det_boxes)
-        pair_ok = active[:, None] & det_mask[None, :]
+        pair_ok = active[..., :, None] & det_mask[..., None, :]
         combined = torch.where(pair_ok, link * w_app + iou * w_iou
                                + dis * w_dis, -math.inf)
 
-        had_active = active.any()
+        had_active = active.any(-1, keepdim=True)                 # (S, 1)
         if assign == 'mip':
             # start / end features: masked means of cor over tracks / dets
             pw = active.to(cor.dtype)
             dw = det_mask.to(cor.dtype)
-            start_feat = ((cor * pw[:, None, None]).sum(0)
-                          / torch.clamp(pw.sum(), min=1.0))       # (D, C)
-            end_feat = ((cor * dw[None, :, None]).sum(1)
-                        / torch.clamp(dw.sum(), min=1.0))         # (T, C)
-            start = torch.sigmoid(se_head(start_feat)[..., 0])
-            end = torch.sigmoid(se_head(end_feat)[..., 0])
+            start_feat = ((cor * pw[..., None, None]).sum(1)
+                          / torch.clamp(pw.sum(-1), min=1.0)[:, None, None])
+            end_feat = ((cor * dw[:, None, :, None]).sum(2)
+                        / torch.clamp(dw.sum(-1), min=1.0)[:, None, None])
+            start = torch.sigmoid(se_head(start_feat)[..., 0])    # (S, D)
+            end = torch.sigmoid(se_head(end_feat)[..., 0])        # (S, T)
             t2d, d2t, live_new = mip_assign(
                 combined, state.score, det_scores, start, end, active,
                 det_mask, w_cls, w_se)
@@ -384,11 +428,15 @@ def make_device_tracker_step(link_head: nn.Module, t_miss: int = 2,
         safe_t2d = torch.where(matched_t, t2d, 0)
         sel = safe_t2d.long()
 
+        def take(x):       # x (S, D, ...) -> its row sel[s, t] per slot
+            return torch.gather(x, 1, sel.reshape(*sel.shape, *[1] * (
+                x.dim() - 2)).expand(-1, -1, *x.shape[2:]))
+
         # ---- update the matched tracks ----
-        mean, cov = _kalman_update(mean, cov, det_boxes[sel], matched_t,
+        mean, cov = _kalman_update(mean, cov, take(det_boxes), matched_t,
                                    state.mats)
-        feat = torch.where(matched_t[:, None], det_feats[sel], state.feat)
-        score = torch.where(matched_t, det_scores[sel], state.score)
+        feat = torch.where(matched_t[..., None], take(det_feats), state.feat)
+        score = torch.where(matched_t, take(det_scores), state.score)
         misses = torch.where(matched_t, 0, misses)
         hits = torch.where(matched_t, state.hits + 1, state.hits)
         det_idx = torch.where(matched_t, safe_t2d, -1)
@@ -402,47 +450,78 @@ def make_device_tracker_step(link_head: nn.Module, t_miss: int = 2,
         is_new = det_mask & (d2t < 0)
         live_b = is_new & ~tentative_new
         tent_b = is_new & tentative_new
-        rank_live = torch.cumsum(live_b.to(i32), 0, dtype=i32) - 1
-        rank_tent = (live_b.sum(dtype=i32)
-                     + torch.cumsum(tent_b.to(i32), 0, dtype=i32) - 1)
-        new_rank = torch.where(live_b, rank_live, rank_tent)      # (D,)
+        rank_live = torch.cumsum(live_b.to(i32), -1, dtype=i32) - 1
+        rank_tent = (live_b.sum(-1, keepdim=True, dtype=i32)
+                     + torch.cumsum(tent_b.to(i32), -1, dtype=i32) - 1)
+        new_rank = torch.where(live_b, rank_live, rank_tent)      # (S, D)
         free = tid == 0
-        free_rank = torch.cumsum(free.to(i32), 0, dtype=i32) - 1  # (T,)
-        # slot_of_rank[r] = the r-th free slot
+        free_rank = torch.cumsum(free.to(i32), -1, dtype=i32) - 1  # (S, T)
+        # slot_of_rank[s, r] = the r-th free slot of stream s
         slot_of_rank = _scatter_drop(
-            torch.full((tcap,), tcap, dtype=i32, device=dev),
+            torch.full((n_seq, tcap), tcap, dtype=i32, device=dev),
             torch.where(free, free_rank, tcap),
-            torch.arange(tcap, dtype=i32, device=dev))
-        born = is_new & (new_rank < free.sum(dtype=i32))
-        dst = torch.where(
-            born, slot_of_rank[new_rank.clamp(0, tcap - 1).long()], tcap)
+            torch.arange(tcap, dtype=i32, device=dev).expand(n_seq, -1))
+        born = is_new & (new_rank < free.sum(-1, keepdim=True, dtype=i32))
+        dst = torch.where(born, torch.gather(
+            slot_of_rank, 1, new_rank.clamp(0, tcap - 1).long()), tcap)
 
-        init_mean = torch.zeros((ndet, _DIM_X), device=dev)
-        init_mean[:, :7] = det_boxes
+        init_mean = torch.zeros((n_seq, ndet, _DIM_X), device=dev)
+        init_mean[..., :7] = det_boxes
         mean = _scatter_drop(mean, dst, init_mean)
         cov = _scatter_drop(cov, dst, state.mats.p0.expand(
-            ndet, _DIM_X, _DIM_X))
+            n_seq, ndet, _DIM_X, _DIM_X))
         feat = _scatter_drop(feat, dst, det_feats)
         score = _scatter_drop(score, dst, det_scores)
-        misses = _scatter_drop(misses, dst, tentative_new.to(i32))
-        hits = _scatter_drop(hits, dst, torch.zeros(ndet, dtype=i32,
+        misses = _scatter_drop(misses, dst, tentative_new.to(i32).expand(
+            n_seq, ndet))
+        hits = _scatter_drop(hits, dst, torch.zeros((n_seq, ndet), dtype=i32,
                                                     device=dev))
         det_idx = _scatter_drop(det_idx, dst, torch.arange(
-            ndet, dtype=i32, device=dev))
-        tid = _scatter_drop(tid, dst, state.next_id + new_rank)
-        next_id = state.next_id + born.sum(dtype=i32)
+            ndet, dtype=i32, device=dev).expand(n_seq, -1))
+        tid = _scatter_drop(tid, dst, state.next_id[:, None] + new_rank)
+        next_id = state.next_id + born.sum(-1, dtype=i32)
 
         # ---- emit ----
-        emit = ((tid > 0) & (misses == 0) & any_det
-                & ((hits >= t_hit) | (frame_count <= t_hit)))
+        emit = ((tid > 0) & (misses == 0) & any_det[:, None]
+                & ((hits >= t_hit) | (frame_count <= t_hit)[:, None]))
         new_state = TrackerState(
             mean=mean, cov=cov, feat=feat, score=score, misses=misses,
             hits=hits, tid=tid, det_idx=det_idx, next_id=next_id,
             frame_count=frame_count, last_frame_idx=last_frame_idx,
             mats=state.mats)
-        output = {'tid': tid, 'box': mean[:, :7], 'score': score,
+        output = {'tid': tid, 'box': mean[..., :7], 'score': score,
                   'det_idx': det_idx, 'emit': emit}
         return new_state, output
+
+    return step
+
+
+def make_device_tracker_step(link_head: nn.Module, device=None, **kw):
+    """The per-frame step of one stream on `device` (default: the CUDA
+    card; raises without one), to which the heads are moved; `kw` as for
+    `make_batched_tracker_step`, whose step it runs with S = 1.
+
+    `link_head` maps (..., C) correlation features |feat_t - feat_d| to
+    (..., 1) scores; `se_head` (needed by assign='mip') scores start / end
+    features the same way.
+
+    step(state, frame_id, det_boxes (D, 7), det_scores (D,), det_feats
+    (D, C), det_mask (D,)) -> (state, output), output a dict of 'tid' (T,),
+    'box' (T, 7), 'score' (T,), 'det_idx' (T,) and 'emit' (T,) bool.
+    """
+    batched = make_batched_tracker_step(link_head, device=device, **kw)
+
+    def step(state: TrackerState, frame_id, det_boxes, det_scores,
+             det_feats, det_mask):
+        one = [torch.as_tensor(x)[None] for x in (frame_id, det_boxes,
+                                                   det_scores, det_feats,
+                                                   det_mask)]
+        states = state._replace(**{k: v[None] for k, v in
+                                   state._asdict().items() if k != 'mats'})
+        states, out = batched(states, *one)
+        state = states._replace(**{k: v[0] for k, v in
+                                   states._asdict().items() if k != 'mats'})
+        return state, {k: v[0] for k, v in out.items()}
 
     return step
 

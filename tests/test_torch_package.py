@@ -20,7 +20,8 @@ from jmodt_torch import config as torch_config
 from jmodt_torch import pipeline, weights
 from jmodt_torch.models import inference, point_rcnn
 from jmodt_torch.models.rcnn import CorrelationHead
-from jmodt_torch.ops import fused_sa, interpolate, kernels, sa_level, sampling
+from jmodt_torch.ops import (depth_to_space, fused_sa, interpolate, kernels,
+                             sa_level, sampling)
 from jmodt_torch.tracking import device_tracker
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -94,6 +95,28 @@ def test_tracker_and_joint_step_need_a_card_unless_asked(monkeypatch):
     assert next(head.parameters()).device.type == 'cpu'
 
 
+def test_lockstep_and_scan_need_a_card_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    cfg = _small_cfg()
+    head = CorrelationHead(8, (8,))
+    model = point_rcnn.build_detector(cfg, device='cpu')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        device_tracker.init_batched_state(2, 4, 8)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        device_tracker.make_batched_tracker_step(head)
+    for make in (pipeline.make_batched_joint_step, pipeline.make_scan_step):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            make(cfg, model, head)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        pipeline.ScanPipeline(cfg, model, head, 8)
+    states = device_tracker.init_batched_state(2, 4, 8, device='cpu')
+    assert states.tid.shape == (2, 4) and states.next_id.shape == (2,)
+    assert states.mats.f.shape == (10, 10)       # shared by the streams
+    pipeline.make_batched_joint_step(cfg, model, head, device='cpu')
+    assert pipeline.ScanPipeline(cfg, model, head, 8, device='cpu'
+                                 ).state.tid.device.type == 'cpu'
+
+
 def test_build_detector_is_seeded():
     cfg = _small_cfg()
     a = point_rcnn.build_detector(cfg, device='cpu', seed=3).state_dict()
@@ -154,6 +177,31 @@ def test_k5_wrapper_checks(bad, match):
         sa_level._k5_plan(**args)
     new_xyz, pooled, idx = sa_level.sa_level_fused(**args)
     assert pooled.shape == (2, 16, 64) and idx.dtype == torch.int32
+
+
+def _k6_args():
+    k, r, h0, w0 = 4, 16, 3, 5
+    return dict(taps=torch.zeros(2, h0 * w0, k * k * r), k=k, r=r, h0=h0,
+                w0=w0, bias=torch.zeros(r))
+
+
+@pytest.mark.parametrize('bad,match', [
+    (dict(taps=torch.zeros(2, 15, 256, dtype=torch.float64)), 'bfloat16'),
+    (dict(taps=torch.zeros(2, 16, 256)), 'shape'),
+    (dict(taps=torch.zeros(2, 256, 15).transpose(1, 2)), 'contiguous'),
+    (dict(bias=torch.zeros(16, dtype=torch.bfloat16)), 'float32'),
+    (dict(bias=torch.zeros(8)), 'shape'),
+    (dict(k=0), 'k=0'),
+])
+def test_k6_wrapper_checks(bad, match):
+    """K6's wrapper refuses what its CUDA entry does not take (checked on
+    CPU tensors here, without the device check)."""
+    args = _k6_args()
+    depth_to_space._check(**args, check=kernels.check_layout)
+    with pytest.raises(ValueError, match=match):
+        depth_to_space._check(**(args | bad), check=kernels.check_layout)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        depth_to_space._check(**args)
 
 
 def test_k5_fits_the_main_path():

@@ -10,6 +10,12 @@ is routed through its Pallas kernel in interpret mode, as in
 tests/test_torch_models.py.  The port runs with MEGA_SA on and off against
 the same JAX output.
 
+The lockstep step runs two streams (frames 0-2 and 1-3) at S = 2 against
+the JAX package's batched step and against the port's own step on each
+stream alone; the scan pipeline runs the four frames in a chunk of 3 and a
+ragged tail of 1 against the JAX package's scan pipeline and the port's
+`JointPipeline`.
+
 Tolerances: tid and emit exact; boxes and scores within 1e-4 of their
 scale (float32, summation order only).
 """
@@ -27,13 +33,19 @@ import jmodt_tpu.models.pointnet2 as jax_pointnet2
 from jmodt_tpu.data import synthetic as jax_synthetic
 from jmodt_tpu.models.point_rcnn import PointRCNN as JaxPointRCNN
 from jmodt_tpu.models.rcnn import CorrelationHead as JaxCorrelationHead
+from jmodt_tpu.pipeline import ScanPipeline as JaxScanPipeline
+from jmodt_tpu.pipeline import make_batched_joint_step as jax_batched_step
 from jmodt_tpu.pipeline import make_joint_step as jax_joint_step
+from jmodt_tpu.tracking.device_tracker import \
+    init_batched_state as jax_init_batched_state
 from jmodt_tpu.tracking.device_tracker import init_state as jax_init_state
 from jmodt_torch import config as torch_config
 from jmodt_torch.models.point_rcnn import PointRCNN
 from jmodt_torch.models.rcnn import CorrelationHead
-from jmodt_torch.pipeline import JointPipeline, make_joint_step
-from jmodt_torch.tracking.device_tracker import init_state
+from jmodt_torch.pipeline import (JointPipeline, ScanPipeline,
+                                  make_batched_joint_step, make_joint_step)
+from jmodt_torch.tracking.device_tracker import (init_batched_state,
+                                                 init_state)
 from jmodt_torch.weights import load_jax_variables
 from tests.test_torch_models import (_randomize_stats, _rel_err,
                                      _three_nn_kernel_semantics)
@@ -86,12 +98,31 @@ def joint_setup():
             state, p = joint(variables, link_p, state, jnp.asarray(i + 1),
                              f['pts_input'], f['img'], f['pts_xy'])
             packed.append(np.asarray(p))
+        # S = 2 lockstep streams, and the scan pipeline in chunks of 3
+        batched = jax_batched_step(jcfg, jmodel, head.apply, **KW)
+        states = jax_init_batched_state(2, MAX_TRACKS, feat_dim)
+        lockstep = []
+        for i in range(3):
+            pair = [frames[i], frames[i + 1]]
+            states, p = batched(
+                variables, link_p, states, np.full(2, i + 1, np.int32),
+                *(np.concatenate([f[k] for f in pair])
+                  for k in ('pts_input', 'img', 'pts_xy')))
+            lockstep.append(np.asarray(p))
+        scan = JaxScanPipeline(jcfg, jmodel, variables, head.apply, link_p,
+                               feat_dim, chunk=3, max_tracks=MAX_TRACKS,
+                               **KW)
+        scanned = []
+        for i, f in enumerate(frames):
+            scanned.extend(scan.push(i + 1, f['pts_input'], f['img'],
+                                     f['pts_xy']))
+        scanned.extend(scan.flush())
     return (frames, jax.device_get(variables), jax.device_get(link_p),
-            feat_dim, packed)
+            feat_dim, packed, lockstep, scanned)
 
 
 def _port_parts(joint_setup, mega):
-    frames, variables, link_p, feat_dim, _ = joint_setup
+    frames, variables, link_p, feat_dim = joint_setup[:4]
     cfg = _torch_cfg(mega)
     model = load_jax_variables(PointRCNN(cfg, device='cpu'), variables,
                                device='cpu')
@@ -110,7 +141,7 @@ def _check_rows(got, want):
 
 @pytest.mark.parametrize('mega', [True, False])
 def test_joint_step_matches_jax(joint_setup, mega):
-    frames, _, _, feat_dim, want = joint_setup
+    frames, _, _, feat_dim, want = joint_setup[:5]
     cfg, model, head = _port_parts(joint_setup, mega)
     joint = make_joint_step(cfg, model, head, device='cpu', **KW)
     state = init_state(MAX_TRACKS, feat_dim, device='cpu')
@@ -122,7 +153,7 @@ def test_joint_step_matches_jax(joint_setup, mega):
 
 
 def test_joint_pipeline_returns_frames_in_order(joint_setup):
-    frames, _, _, feat_dim, want = joint_setup
+    frames, _, _, feat_dim, want = joint_setup[:5]
     cfg, model, head = _port_parts(joint_setup, True)
     pipe = JointPipeline(cfg, model, head, feat_dim, max_tracks=MAX_TRACKS,
                          fetch_lag=2, device='cpu', **KW)
@@ -141,3 +172,59 @@ def test_joint_pipeline_returns_frames_in_order(joint_setup):
         for (_, box, score), row in zip(rows, emitted):
             assert _rel_err(box, row[1:8]) < TOL
             assert abs(score - row[8]) < TOL
+
+
+def test_batched_joint_step_matches_jax_and_single_streams(joint_setup):
+    """S = 2 lockstep streams: the JAX package's batched step, and the
+    port's single-stream step on each stream alone."""
+    frames, _, _, feat_dim, _, want, _ = joint_setup
+    cfg, model, head = _port_parts(joint_setup, True)
+    batched = make_batched_joint_step(cfg, model, head, device='cpu', **KW)
+    joint = make_joint_step(cfg, model, head, device='cpu', **KW)
+    states = init_batched_state(2, feat_dim=feat_dim, max_tracks=MAX_TRACKS,
+                                device='cpu')
+    singles = [init_state(MAX_TRACKS, feat_dim, device='cpu')
+               for _ in range(2)]
+    for i in range(3):
+        pair = [frames[i], frames[i + 1]]
+        states, packed = batched(
+            states, np.full(2, i + 1, np.int32),
+            *(np.concatenate([f[k] for f in pair])
+              for k in ('pts_input', 'img', 'pts_xy')))
+        assert packed.shape == (2, MAX_TRACKS, 10)
+        for s, f in enumerate(pair):
+            _check_rows(packed[s].numpy(), want[i][s])
+            singles[s], alone = joint(singles[s], i + 1, f['pts_input'],
+                                      f['img'], f['pts_xy'])
+            _check_rows(packed[s].numpy(), alone.numpy())
+    assert sum(int(p[..., 9].sum()) for p in want) > 0
+
+
+def test_scan_pipeline_matches_jax_and_joint_pipeline(joint_setup):
+    """A chunk of 3 and a ragged tail of 1 (padded by repeating the last
+    frame, its pad rows dropped): the JAX package's scan pipeline and the
+    port's JointPipeline give the same frames and rows."""
+    frames, _, _, feat_dim, _, _, want = joint_setup
+    cfg, model, head = _port_parts(joint_setup, True)
+    kw = dict(max_tracks=MAX_TRACKS, device='cpu', **KW)
+    scan = ScanPipeline(cfg, model, head, feat_dim, chunk=3, **kw)
+    pipe = JointPipeline(cfg, model, head, feat_dim, fetch_lag=1, **kw)
+    got, ref = [], []
+    for i, f in enumerate(frames):
+        args = (i + 1, f['pts_input'], f['img'], f['pts_xy'])
+        # the first chunk is read when the next one runs: here, at flush
+        assert scan.push(*args) == []
+        r = pipe.push(*args)
+        if r is not None:
+            ref.append(r)
+    got.extend(scan.flush())
+    ref.extend(pipe.flush())
+    assert [fid for fid, _ in got] == [fid for fid, _ in want] == [1, 2, 3, 4]
+    for other in (want, ref):
+        for (fid, rows), (ofid, orows) in zip(got, other):
+            assert fid == ofid
+            assert [r[0] for r in rows] == [r[0] for r in orows]
+            for (_, box, score), (_, obox, oscore) in zip(rows, orows):
+                assert _rel_err(box, obox) < TOL
+                assert abs(score - oscore) < TOL
+    assert sum(len(rows) for _, rows in got) > 0

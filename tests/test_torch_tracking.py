@@ -124,7 +124,7 @@ def test_kalman_predict_matches_jax(steps):
     wm, wc = jdt._kalman_predict(jnp.asarray(m16), jnp.asarray(c16),
                                  jnp.asarray(steps),
                                  jdt._make_mats())
-    gm, gc = tdt._kalman_predict(_t(mean), _t(cov), steps,
+    gm, gc = tdt._kalman_predict(_t(mean), _t(cov), torch.tensor(steps),
                                  tdt._make_mats('cpu'))
     assert _rel_err(gm.numpy(), np.asarray(wm)[:, :10]) < TOL
     assert _rel_err(gc.numpy(), np.asarray(wc)[:, :10, :10]) < TOL
@@ -307,3 +307,97 @@ def test_device_tracker_pads_detections():
         for key in ('tid', 'emit', 'det_idx'):
             np.testing.assert_array_equal(go[key].numpy(),
                                           np.asarray(wo[key]))
+
+
+# ---------------------------------------------------- lockstep streams (S)
+
+def _streams():
+    """3 streams of 8 lockstep frames (the frame ids of `_sequence`): 0 is
+    `_sequence`; 1 is the same cars 30 m to the side, ending after 5 frames
+    (padded with empty frames); 2 is 30 m to the other side with an empty
+    gap at frames 3-4, so its next predict runs 3 steps while stream 0's
+    runs 1."""
+    base = _sequence()
+    streams = []
+    for s, (dx, empty) in enumerate(((0.0, ()), (30.0, (5, 6, 7)),
+                                     (-30.0, (2, 3)))):
+        frames = []
+        for t, (fid, db, ds, df, dm) in enumerate(base):
+            db, dm = db.copy(), dm.copy()
+            db[:, 0] += dx
+            if t in empty:
+                dm[:] = False
+            frames.append((fid, db, ds, df + 0.1 * s, dm))
+        streams.append(frames)
+    return streams
+
+
+@pytest.mark.parametrize('assign', ['hungarian', 'greedy', 'mip'])
+def test_batched_tracker_step_matches_jax(assign, monkeypatch):
+    """S = 3 lockstep streams against the JAX package's vmapped step: every
+    state field and output, every frame; the port reads the host twice a
+    frame ('greedy': once), whatever S is."""
+    (link_apply, link_p, se_apply, se_p), (tlink, tse) = _heads()
+    mip = assign == 'mip'
+    kw = dict(score_thresh=0.85, assign=assign)
+    jstep = jdt.make_batched_tracker_step(
+        link_apply, se_apply=se_apply if mip else None, **kw)
+    tstep = tdt.make_batched_tracker_step(
+        tlink, se_head=tse if mip else None, device='cpu', **kw)
+    params = (link_p, se_p) if mip else link_p
+    jstate = jdt.init_batched_state(3, 16, FEAT)
+    tstate = tdt.init_batched_state(3, 16, FEAT, device='cpu')
+    reads = []
+    to_host = tdt._to_host
+    monkeypatch.setattr(tdt, '_to_host',
+                        lambda t: reads.append(t.shape) or to_host(t))
+    streams = _streams()
+    emitted = np.zeros(3, int)
+    for t in range(8):
+        fids, db, ds, df, dm = (np.stack(x) for x in zip(
+            *(streams[s][t] for s in range(3))))
+        jstate, jout = jstep(jstate, fids.astype(np.int32), db, ds, df, dm,
+                             params)
+        del reads[:]
+        tstate, tout = tstep(tstate, fids, db, ds, df, dm)
+        assert len(reads) == (1 if assign == 'greedy' else 2)
+        for key in _INT_FIELDS:
+            np.testing.assert_array_equal(
+                getattr(tstate, key).numpy(),
+                np.asarray(getattr(jstate, key)), err_msg=f'{t} {key}')
+        assert _rel_err(tstate.mean.numpy(),
+                        np.asarray(jstate.mean)[..., :10]) < TOL
+        assert _rel_err(tstate.cov.numpy(),
+                        np.asarray(jstate.cov)[..., :10, :10]) < TOL
+        for key in ('feat', 'score'):
+            assert _rel_err(getattr(tstate, key).numpy(),
+                            np.asarray(getattr(jstate, key))) < TOL, key
+        for key in ('tid', 'det_idx', 'emit'):
+            np.testing.assert_array_equal(tout[key].numpy(),
+                                          np.asarray(jout[key]))
+        for key in ('box', 'score'):
+            assert _rel_err(tout[key].numpy(), np.asarray(jout[key])) < TOL
+        emitted += tout['emit'].numpy().sum(-1)
+    assert (emitted > 0).all()
+
+
+def test_batched_tracker_step_matches_single_streams():
+    """Each stream of the lockstep step equals the single-stream step run
+    on that stream alone."""
+    (_, _, _, _), (tlink, _) = _heads()
+    kw = dict(score_thresh=0.85, device='cpu')
+    batched = tdt.make_batched_tracker_step(tlink, **kw)
+    single = tdt.make_device_tracker_step(tlink, **kw)
+    streams = _streams()
+    bstate = tdt.init_batched_state(3, 16, FEAT, device='cpu')
+    states = [tdt.init_state(16, FEAT, device='cpu') for _ in range(3)]
+    for t in range(8):
+        fids, db, ds, df, dm = (np.stack(x) for x in zip(
+            *(streams[s][t] for s in range(3))))
+        bstate, bout = batched(bstate, fids, db, ds, df, dm)
+        for s in range(3):
+            states[s], out = single(states[s], *streams[s][t])
+            for key in ('tid', 'det_idx', 'emit'):
+                assert torch.equal(out[key], bout[key][s])
+            for key in ('box', 'score'):
+                assert _rel_err(out[key].numpy(), bout[key][s].numpy()) < TOL
