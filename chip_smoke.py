@@ -47,9 +47,11 @@ Phases, in order; any failure exits non-zero:
             before; each kernel must launch its per-frame count on every
             lockstep frame (not per stream), packed (4, 64, 10) rows must be
             finite and some emitted, and the tracker must read the host
-            exactly twice a frame.  Then 2 frames in float32 at S = 2
-            against two independent joint steps on the card: tid and emit
-            equal, boxes and scores within 1e-3 of their scale.
+            exactly twice a frame.  Level-0 FPS of a lockstep frame
+            (4 x 16384 points) must take K1 once and equal its plain
+            version.  Then 2 frames in float32 at S = 2 against two
+            independent joint steps on the card: tid and emit equal, boxes
+            and scores within 1e-3 of their scale.
 9. scan     ScanPipeline with chunks of 3 over 4 frames (a full chunk and a
             ragged tail) against JointPipeline on the same frames: frame
             ids and the tids of the emitted rows equal, boxes within 1e-3
@@ -76,6 +78,8 @@ import torch.nn.functional as F
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# torch.cuda._sleep counts SM clock cycles; the H100's top SM clock
+SLEEP_HZ = 1.98e9
 
 # per-frame launches of each kernel on the detection step (phase 3) and on
 # the joint step with RPN.MEGA_SA (phase 6, the main path)
@@ -124,11 +128,19 @@ def check(ok: bool, what: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean ms of `fn` over `reps` calls after one warm-up, CUDA events."""
+    """Mean device ms of `fn` over `reps` calls after one warm-up, CUDA
+    events.  A sleep kernel first holds the stream for about twice the
+    host time of the calls, so the host queues them all before the start
+    event: the events then time the device's work, not the host's launch
+    cost of a call shorter than its launch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(0.2, 2 * reps * host_s + 1e-3) * SLEEP_HZ))
     start.record()
     for _ in range(reps):
         fn()
@@ -655,6 +667,22 @@ def run_batched(bjoint, cfg, frames):
     return ms, counts, emitted / len(packs)
 
 
+def check_fps_streams(frames, npoint=4096):
+    """Phase 8: RPN level 0 of a lockstep frame, (S, 16384, 3) -> npoint,
+    goes to K1's block kernel, one launch, and equals the plain version."""
+    from jmodt_torch.ops import kernels, sampling
+    xyz = torch.as_tensor(lockstep_inputs(frames, 0, STREAMS)[1],
+                          device='cuda')[..., :3].contiguous()
+    before = dict(kernels.launches)
+    got = sampling.farthest_point_sample(xyz, npoint)
+    check(kernels.launches['fps'] == before.get('fps', 0) + 1
+          and kernels.launches['fps_batched'] == before.get('fps_batched', 0),
+          'streams: level-0 FPS did not take K1 once')
+    check(torch.equal(got, sampling.farthest_point_sample_plain(xyz, npoint)),
+          f'streams: K1 at B={xyz.shape[0]} differs from plain')
+    return tuple(xyz.shape)
+
+
 def batched_parity(frames, streams=2, n_frames=2):
     """Phase 8, second half: float32 lockstep streams against independent
     joint steps on the card."""
@@ -783,6 +811,9 @@ def main() -> int:
           f'{bms / STREAMS:.2f} ms a stream-frame, {brows:.2f} rows emitted '
           f'a lockstep frame, {HOST_READS} tracker host reads a frame; '
           f'launches {bcounts}', flush=True)
+    shape = check_fps_streams(frames)
+    print(f'[8 streams] level-0 FPS {shape} -> 4096: one K1 launch, equal to '
+          'plain', flush=True)
     berrs, bemit = batched_parity(frames)
     print('[8 streams] float32 S=2 lockstep vs independent joint steps, 2 '
           f'frames: tid, emit equal ({bemit} rows emitted); boxes / scores '
