@@ -11,10 +11,12 @@ Phases, in order; any failure exits non-zero:
             at the four NonOverlapDeconv levels) is then run on those
             inputs and held against its plain PyTorch version: FPS and 3-NN
             indices equal, 3-NN distances within 1e-5 relative, K4 within
-            1e-4 of the output's scale, K6 equal bit for bit.  Times come
-            from CUDA events; K6 is also timed against permute().contiguous()
-            (the move alone) and its deconv (matmul + K6) against
-            F.conv_transpose2d.
+            1e-4 of the output's scale, K6 equal bit for bit.  Times are
+            device time from CUDA events, streaming from HBM (cuda_ms); a
+            '*' and the kernel line's "host_clocked" mark a time the host's
+            launches may have set.  K6 is also timed against
+            permute().contiguous() (the move alone) and its deconv (matmul
+            + K6) against F.conv_transpose2d.
 3. step     the detection step at the default Config() (bfloat16 network,
             16384 points, 384x1280 uint8 image, random weights from seed 0)
             runs 3 frames with the launch counts set to 0 just before; each
@@ -42,14 +44,16 @@ Phases, in order; any failure exits non-zero:
             CPU with the same weights: tid and emit equal, boxes and scores
             within 1e-3 of their scale.
 8. streams  the lockstep step (make_batched_joint_step) at S = 4 streams,
-            bfloat16, the joint step's weights and settings: one warm-up
-            frame, then 3 frames with the launch counts set to 0 just
-            before; each kernel must launch its per-frame count on every
-            lockstep frame (not per stream), packed (4, 64, 10) rows must be
-            finite and some emitted, and the tracker must read the host
-            exactly twice a frame.  Level-0 FPS of a lockstep frame
-            (4 x 16384 points) must take K1 once and equal its plain
-            version.  Then 2 frames in float32 at S = 2 against two
+            bfloat16, the joint step's weights and settings: one frame
+            records every kernel's inputs, and each call is held against
+            its plain version with phase 2's and 5's tolerances (K1 once,
+            on level 0 of all streams, 4 x 16384 points; K2 and K4 over
+            400 RoI clouds; K3, K5 and K6 at batch 4).  Then 3 frames with
+            the launch counts set to 0 just before; each kernel must launch
+            its per-frame count on every lockstep frame (not per stream),
+            packed (4, 64, 10) rows must be finite and some emitted, and
+            the tracker must read the host exactly twice a frame.  Then 2
+            frames in float32 at S = 2 against two
             independent joint steps on the card: tid and emit equal, boxes
             and scores within 1e-3 of their scale.
 9. scan     ScanPipeline with chunks of 3 over 4 frames (a full chunk and a
@@ -80,9 +84,9 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # torch.cuda._sleep counts SM clock cycles; the H100's top SM clock
 SLEEP_HZ = 1.98e9
+ROTATE_BYTES = 100 << 20        # twice the H100's 50 MB L2
 
 # per-frame launches of each kernel on the detection step (phase 3) and on
-# the joint step with RPN.MEGA_SA (phase 6, the main path)
 # the joint step with RPN.MEGA_SA (phase 6, the main path); the lockstep
 # step (phase 8) launches the joint step's counts per lockstep frame
 PER_FRAME = {'fps': 4, 'fps_batched': 2, 'three_nn': 4,
@@ -127,26 +131,40 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device ms of `fn` over `reps` calls after one warm-up, CUDA
-    events.  A sleep kernel first holds the stream for about twice the
-    host time of the calls, so the host queues them all before the start
-    event: the events then time the device's work, not the host's launch
-    cost of a call shorter than its launch."""
+def cuda_ms(fn, args, reps: int):
+    """(mean device ms of `fn(*args)` over `reps` calls, host_clocked), from
+    CUDA events around the calls, made back to back.  The calls cycle
+    through copies of the tensor arguments that together hold twice the
+    L2, and keep their outputs alive in a ring as long, so a call streams
+    its bytes from and to HBM, as on a frame, instead of finding them in
+    L2.  A sleep kernel first holds the stream for about twice the host
+    time of the calls, so the host queues them all before the device
+    starts: the events then time the device's work, not the host's launch
+    cost.  `host_clocked` says the device reached the first call before
+    the host had queued the last (the sleep, capped at 0.2 s, was too
+    short, or the launch queue filled): the time may then include waits
+    for the host."""
+    size = sum(a.numel() * a.element_size() for a in args
+               if isinstance(a, torch.Tensor))
+    n = max(1, min(reps, -(-ROTATE_BYTES // max(size, 1))))
+    copies = [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args) for _ in range(n - 1)]
+    ring = [None] * n
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    ring[0] = fn(*args)
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(int(min(0.2, 2 * reps * host_s + 1e-3) * SLEEP_HZ))
     start.record()
-    for _ in range(reps):
-        fn()
+    for i in range(reps):
+        ring[i % n] = fn(*copies[i % n])
     end.record()
+    host_clocked = start.query()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, host_clocked
 
 
 def scale_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -162,160 +180,180 @@ def bound_ms(flops: float, nbytes: float):
                                        else 'bytes')
 
 
-# ----------------------------------------------------------------- phase 2
+def tally(*cols):
+    """An aggregate over one frame's calls of a kernel: a sum per time
+    column, the bound's two times, the largest error, and the columns that
+    some call timed by the host's clock."""
+    return dict({c: 0.0 for c in cols}, t_ops=0.0, t_bytes=0.0,
+                max_abs_err=0.0, host_clocked=set())
 
-def record_kernel_inputs(step, model, frame):
-    """Run one frame, recording the arguments of every kernel wrapper call
-    in main-path order: {kernel name: [args, ...]}, and under 'deconv' each
-    NonOverlapDeconv module with its input, [(module, x), ...]."""
+
+def add_times(tot, times):
+    """Add {column: (ms, host_clocked) or None} into `tot`; a None makes
+    the column None (no library call for some call of the frame)."""
+    for col, t in times.items():
+        if t is None or tot[col] is None:
+            tot[col] = None
+            continue
+        tot[col] += t[0]
+        if t[1]:
+            tot['host_clocked'].add(col)
+
+
+def show(t) -> str:
+    """A time as printed: '*' marks one clocked by the host."""
+    return '-' if t is None else f'{t[0]:.4f}{"*" if t[1] else ""} ms'
+
+
+# ------------------------------------------------------- phases 2, 5, 8
+
+def record_kernel_inputs(run):
+    """Run one frame (`run()`), recording the arguments of every kernel
+    wrapper call in main-path order, {kernel name: [args, ...]}, and every
+    NonOverlapDeconv call, [(module, input), ...].  An FPS call is filed
+    under the kernel whose launch count it raised.  Returns ((calls,
+    deconvs), what `run` returned)."""
     import jmodt_torch.models.image_backbone as image_backbone
     import jmodt_torch.models.pointnet2 as pointnet2
     import jmodt_torch.ops.fused_sa as fused_sa
-    from jmodt_torch.ops.sampling import FPS_WARP_MAX_POINTS
-    calls = {k['name']: [] for k in KERNELS if k['name'] != 'sa_level'}
+    from jmodt_torch.ops import kernels
+    calls = {k['name']: [] for k in KERNELS}
     deconvs = []
+    deconv_cls = image_backbone.NonOverlapDeconv
     originals = (pointnet2.farthest_point_sample, pointnet2.three_nn,
-                 fused_sa.grouped_gather_mlp_max,
-                 image_backbone.depth_to_space)
+                 pointnet2.sa_level_fused, fused_sa.grouped_gather_mlp_max,
+                 image_backbone.depth_to_space, deconv_cls.forward)
 
     def fps(xyz, npoint):
-        b, n, _ = xyz.shape
-        calls['fps_batched' if b > 1 and n <= FPS_WARP_MAX_POINTS
-              else 'fps'].append((xyz, npoint))
-        return originals[0](xyz, npoint)
+        before = kernels.launches.copy()
+        out = originals[0](xyz, npoint)
+        took = [n for n in ('fps', 'fps_batched')
+                if kernels.launches[n] > before[n]]
+        check(len(took) == 1, f'FPS {tuple(xyz.shape)}: launched {took}')
+        calls[took[0]].append((xyz, npoint))
+        return out
 
-    def three_nn(unknown, known):
-        calls['three_nn'].append((unknown, known))
-        return originals[1](unknown, known)
+    def spy(name, fn):
+        def recorded(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return recorded
 
-    def ggmm(feats1, idx, cxw, b1, layers):
-        calls['grouped_gather_mlp_max'].append((feats1, idx, cxw, b1,
-                                                tuple(layers)))
-        return originals[2](feats1, idx, cxw, b1, layers)
+    def deconv(mod, x):
+        deconvs.append((mod, x))
+        return originals[5](mod, x)
 
-    def d2s(*args):
-        calls['depth_to_space'].append(args)
-        return originals[3](*args)
-
-    pointnet2.farthest_point_sample, pointnet2.three_nn = fps, three_nn
-    fused_sa.grouped_gather_mlp_max = ggmm
-    image_backbone.depth_to_space = d2s
-    hooks = [m.register_forward_hook(
-        lambda mod, inp, _out: deconvs.append((mod, inp[0])))
-        for m in model.modules()
-        if isinstance(m, image_backbone.NonOverlapDeconv)]
+    pointnet2.farthest_point_sample = fps
+    pointnet2.three_nn = spy('three_nn', originals[1])
+    pointnet2.sa_level_fused = spy('sa_level', originals[2])
+    fused_sa.grouped_gather_mlp_max = spy('grouped_gather_mlp_max',
+                                          originals[3])
+    image_backbone.depth_to_space = spy('depth_to_space', originals[4])
+    deconv_cls.forward = deconv
     try:
-        step(frame['pts_input'], frame['img'], frame['pts_xy'])
+        out = run()
         torch.cuda.synchronize()
     finally:
         (pointnet2.farthest_point_sample, pointnet2.three_nn,
-         fused_sa.grouped_gather_mlp_max,
-         image_backbone.depth_to_space) = originals
-        for h in hooks:
-            h.remove()
-    return calls, deconvs
+         pointnet2.sa_level_fused, fused_sa.grouped_gather_mlp_max,
+         image_backbone.depth_to_space, deconv_cls.forward) = originals
+    return (calls, deconvs), out
 
 
-def check_k6(args, deconv):
-    """K6 at one pyramid level: equal to its plain version; its time, the
-    plain version's, permute().contiguous() (the move alone), and the whole
-    deconv (matmul + K6) beside F.conv_transpose2d.  Returns (error, ms,
-    plain ms, library ms, operations, bytes, shape, deconv ms, deconv
-    library ms)."""
+def check_kernels(recorded, per_frame, timed=True):
+    """Each recorded call of the kernels in `per_frame` ({name: calls a
+    frame}) against its plain version and, when `timed`, its kernel, plain
+    and library times and its bound.  Returns {kernel name: aggregate over
+    the frame's calls}."""
     from jmodt_torch.ops import depth_to_space as d2s
-    taps, k, r, h0, w0, bias = args
-    b = taps.shape[0]
-    got = d2s.depth_to_space(*args)
-    want = d2s.depth_to_space_plain(*args)
-    check(torch.equal(got, want), f'K6 k={k}: differs from plain')
-    err = float((got.float() - want.float()).abs().max())
-    ms = cuda_ms(lambda: d2s.depth_to_space(*args), 20)
-    plain = cuda_ms(lambda: d2s.depth_to_space_plain(*args), 10)
-    lib = cuda_ms(lambda: taps.view(b, h0, w0, k, k, r).permute(
-        0, 1, 3, 2, 4, 5).contiguous(), 20)
-    mod, x = deconv
-    dt = mod.dtype
-    dec = cuda_ms(lambda: mod(x), 20)
-    dec_lib = cuda_ms(lambda: F.conv_transpose2d(
-        x.permute(0, 3, 1, 2).to(dt), mod.weight.to(dt), mod.bias.to(dt),
-        stride=k), 20)
-    flops = float(got.numel())                  # the bias adds
-    nbytes = float(taps.element_size() * (taps.numel() + r + got.numel()))
-    shape = f'B={b} k={k} {h0}x{w0}x{k * k * r}->{h0 * k}x{w0 * k}x{r}'
-    return err, ms, plain, lib, flops, nbytes, shape, dec, dec_lib
-
-
-def check_kernels(recorded):
-    """Each recorded call: kernel vs plain version, times and bound.
-    Returns {kernel name: aggregate over one frame's calls}."""
     from jmodt_torch.ops import fused_sa, interpolate, sampling
     calls, deconvs = recorded
-    check(len(deconvs) == PER_FRAME['depth_to_space'],
-          f'{len(deconvs)} NonOverlapDeconv calls a frame')
     agg = {}
-    for name, args_list in calls.items():
-        check(len(args_list) == PER_FRAME[name],
-              f'{name}: {len(args_list)} calls a frame, expected '
-              f'{PER_FRAME[name]}')
-        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                   t_ops=0.0, t_bytes=0.0, max_abs_err=0.0)
+    for name, per in per_frame.items():
+        args_list = calls[name]
+        check(len(args_list) == per, f'{name}: {len(args_list)} calls a '
+              f'frame, expected {per}')
+        if name == 'sa_level':
+            agg[name] = check_k5(args_list, timed)
+            continue
+        tot = tally('ms', 'plain_ms', 'library_ms')
         for i, args in enumerate(args_list):
+            extra = ''
             if name in ('fps', 'fps_batched'):
                 xyz, npoint = args
                 b, n, _ = xyz.shape
-                got = sampling.farthest_point_sample(xyz, npoint)
-                want = sampling.farthest_point_sample_plain(xyz, npoint)
-                check(torch.equal(got, want),
+                fns = (sampling.farthest_point_sample,
+                       sampling.farthest_point_sample_plain, None)
+                reps = (10, 2, 0)
+                check(torch.equal(fns[0](*args), fns[1](*args)),
                       f'{name} {b}x{n}->{npoint}: indices differ')
-                err, lib = 0.0, None
-                ms = cuda_ms(lambda: sampling.farthest_point_sample(
-                    xyz, npoint), 10)
-                plain = cuda_ms(lambda: sampling.farthest_point_sample_plain(
-                    xyz, npoint), 2)
+                err = 0.0
                 flops = 9.0 * b * n * (npoint - 1)
                 nbytes = b * (12.0 * n + 4.0 * npoint)
                 shape = f'B={b} {n}->{npoint}'
             elif name == 'three_nn':
-                u, k = args
-                b, n, m = u.shape[0], u.shape[1], k.shape[1]
-                d, i = interpolate.three_nn(u, k)
-                dp, ip = interpolate.three_nn_plain(u, k)
-                check(torch.equal(i, ip), f'three_nn {n}x{m}: indices differ')
+                u, kn = args
+                b, n, m = u.shape[0], u.shape[1], kn.shape[1]
+                fns = (interpolate.three_nn, interpolate.three_nn_plain,
+                       lambda u, kn: torch.topk(torch.cdist(u, kn), 3,
+                                                largest=False))
+                reps = (20, 3, 5)
+                (d, i_), (dp, ip) = fns[0](*args), fns[1](*args)
+                check(torch.equal(i_, ip),
+                      f'three_nn B={b} {n}x{m}: indices differ')
                 rel = float(((d - dp).abs() / dp.abs().clamp_min(1e-30))
                             .max())
-                check(rel <= 1e-5, f'three_nn {n}x{m}: distance rel err {rel}')
+                check(rel <= 1e-5,
+                      f'three_nn B={b} {n}x{m}: distance rel err {rel}')
                 err = float((d - dp).abs().max())
-                ms = cuda_ms(lambda: interpolate.three_nn(u, k), 20)
-                plain = cuda_ms(lambda: interpolate.three_nn_plain(u, k), 3)
-                lib = cuda_ms(lambda: torch.topk(torch.cdist(u, k), 3,
-                                                 largest=False), 5)
                 flops = 8.0 * b * n * m
                 nbytes = 12.0 * b * (n + m) + 24.0 * b * n
                 shape = f'B={b} {n}x{m}'
             elif name == 'depth_to_space':
-                (err, ms, plain, lib, flops, nbytes, shape, dec,
-                 dec_lib) = check_k6(args, deconvs[i])
-                tot['deconv_ms'] = tot.get('deconv_ms', 0.0) + dec
-                tot['deconv_library_ms'] = (tot.get('deconv_library_ms', 0.0)
-                                            + dec_lib)
-                shape += (f' deconv: matmul+K6 {dec:.4f} ms, '
-                          f'conv_transpose2d {dec_lib:.4f} ms')
+                taps, k, r, h0, w0, bias = args
+                b = taps.shape[0]
+                fns = (d2s.depth_to_space, d2s.depth_to_space_plain,
+                       lambda taps, k, r, h0, w0, _bias: taps.view(
+                           b, h0, w0, k, k, r).permute(
+                               0, 1, 3, 2, 4, 5).contiguous())
+                reps = (20, 10, 20)
+                got = fns[0](*args)
+                check(torch.equal(got, fns[1](*args)),
+                      f'K6 B={b} k={k}: differs from plain')
+                err = 0.0
+                flops = float(got.numel())                  # the bias adds
+                nbytes = float(taps.element_size()
+                               * (taps.numel() + r + got.numel()))
+                shape = (f'B={b} k={k} {h0}x{w0}x{k * k * r}->{h0 * k}x'
+                         f'{w0 * k}x{r}')
+                if timed:
+                    check(len(deconvs) == per,
+                          f'{len(deconvs)} NonOverlapDeconv calls a frame')
+                    mod, x = deconvs[i]
+                    dt = mod.dtype
+                    w, bb = mod.weight.to(dt), mod.bias.to(dt)
+                    dec = {'deconv_ms': cuda_ms(mod, (x,), 20),
+                           'deconv_library_ms': cuda_ms(
+                               lambda x: F.conv_transpose2d(
+                                   x.permute(0, 3, 1, 2).to(dt), w, bb,
+                                   stride=k), (x,), 20)}
+                    tot.setdefault('deconv_ms', 0.0)
+                    tot.setdefault('deconv_library_ms', 0.0)
+                    add_times(tot, dec)
+                    extra = (f' deconv: matmul+K6 {show(dec["deconv_ms"])}, '
+                             'conv_transpose2d '
+                             f'{show(dec["deconv_library_ms"])}')
             else:
                 feats1, idx, cxw, b1, layers = args
                 b, n, c1 = feats1.shape
                 m, s = idx.shape[1], idx.shape[2]
-                got = fused_sa.grouped_gather_mlp_max(feats1, idx, cxw, b1,
-                                                      layers)
-                want = fused_sa.grouped_gather_mlp_max_plain(
-                    feats1, idx, cxw, b1, layers)
+                fns = (fused_sa.grouped_gather_mlp_max,
+                       fused_sa.grouped_gather_mlp_max_plain, None)
+                reps = (10, 3, 0)
+                got, want = fns[0](*args), fns[1](*args)
                 rel = scale_err(got, want)
                 check(rel <= K4_TOL, f'K4 B={b} M={m} S={s}: err {rel}')
                 err = float((got - want).abs().max())
-                ms = cuda_ms(lambda: fused_sa.grouped_gather_mlp_max(
-                    feats1, idx, cxw, b1, layers), 10)
-                plain = cuda_ms(lambda: fused_sa.grouped_gather_mlp_max_plain(
-                    feats1, idx, cxw, b1, layers), 3)
-                lib = None
                 rows = b * m * s
                 widths = [c1] + [w.shape[1] for w, _ in layers]
                 flops = rows * (3.0 * c1 + sum(
@@ -327,19 +365,22 @@ def check_kernels(recorded):
                                 + b * m * widths[-1])
                 shape = (f'B={b} N={n} M={m} S={s} '
                          f'{"->".join(map(str, widths))}')
+            tot['max_abs_err'] = max(tot['max_abs_err'], err)
+            if not timed:
+                print(f'  {name:24s} {shape:38s} equal to plain, max_abs_err '
+                      f'{err:.3g}', flush=True)
+                continue
+            times = {col: None if fn is None else cuda_ms(fn, args, n)
+                     for col, fn, n in zip(('ms', 'plain_ms', 'library_ms'),
+                                           fns, reps)}
+            add_times(tot, times)
             bms, by = bound_ms(flops, nbytes)
-            print(f'  {name:24s} {shape:38s} kernel {ms:9.4f} ms  plain '
-                  f'{plain:9.4f} ms  library '
-                  f'{"-" if lib is None else f"{lib:.4f} ms":>11s}  bound '
-                  f'{bms:.4f} ms ({by})  max_abs_err {err:.3g}', flush=True)
-            tot['ms'] += ms
-            tot['plain_ms'] += plain
-            tot['bound_ms'] += bms
             tot['t_ops'] += flops / PEAK_F32_FLOPS
             tot['t_bytes'] += nbytes / PEAK_BYTES
-            tot['library_ms'] = (None if lib is None or tot['library_ms']
-                                 is None else tot['library_ms'] + lib)
-            tot['max_abs_err'] = max(tot['max_abs_err'], err)
+            print(f'  {name:24s} {shape:38s} kernel {show(times["ms"])}  '
+                  f'plain {show(times["plain_ms"])}  library '
+                  f'{show(times["library_ms"])}  bound {bms:.4f} ms ({by})  '
+                  f'max_abs_err {err:.3g}{extra}', flush=True)
         agg[name] = tot
     return agg
 
@@ -447,27 +488,6 @@ def new_state(cfg, device=None, streams=None):
                               device=device)
 
 
-def record_k5_inputs(joint, cfg, frame):
-    """Run one joint frame, recording the arguments of every K5 wrapper
-    call: [(xyz, feats, npoint, radii, nsamples, folded), ...]."""
-    import jmodt_torch.models.pointnet2 as pointnet2
-    calls = []
-    original = pointnet2.sa_level_fused
-
-    def spy(*args):
-        calls.append(args)
-        return original(*args)
-
-    pointnet2.sa_level_fused = spy
-    try:
-        joint(new_state(cfg), 1, frame['pts_input'], frame['img'],
-              frame['pts_xy'])
-        torch.cuda.synchronize()
-    finally:
-        pointnet2.sa_level_fused = original
-    return calls
-
-
 def k5_work(args, new_xyz):
     """(float32 operations, bytes) one K5 call needs on these inputs.  The
     ball query counts, per centre, the points up to the last one the scan
@@ -511,15 +531,13 @@ def default_level(xyz, feats, npoint, radii, nsamples, folded):
                       for nbr, lay in zip(nbrs, folded)], dim=-1)
 
 
-def check_k5(calls):
-    """K5 vs its plain version at each recorded level; returns the
-    aggregate over the frame's calls."""
+def check_k5(calls, timed=True):
+    """K5 vs its plain version at each recorded level and, when `timed`,
+    its times beside the default path's; returns the aggregate over the
+    frame's calls."""
     from jmodt_torch.ops import sa_level
-    check(len(calls) == PER_FRAME_JOINT['sa_level'],
-          f'sa_level: {len(calls)} calls a frame, expected '
-          f'{PER_FRAME_JOINT["sa_level"]}')
-    tot = dict(ms=0.0, plain_ms=0.0, default_ms=0.0, t_ops=0.0,
-               t_bytes=0.0, max_abs_err=0.0, library_ms=None)
+    tot = tally('ms', 'plain_ms', 'default_ms')
+    tot['library_ms'] = None
     for level, args in enumerate(calls, start=1):
         xyz, feats, npoint, radii, nsamples, folded = args
         got = sa_level.sa_level_fused(*args)
@@ -529,23 +547,26 @@ def check_k5(calls):
         rel = scale_err(got[1], want[1])
         check(rel <= K5_TOL, f'K5 L{level}: pooled err {rel}')
         err = float((got[1] - want[1]).abs().max())
-        ms = cuda_ms(lambda: sa_level.sa_level_fused(*args), 10)
-        plain = cuda_ms(lambda: sa_level.sa_level_fused_plain(*args), 2)
-        dflt = cuda_ms(lambda: default_level(*args), 5)
+        tot['max_abs_err'] = max(tot['max_abs_err'], err)
+        c = 0 if feats is None else feats.shape[-1]
+        shape = (f'B={xyz.shape[0]} N={xyz.shape[1]} C={c} M={npoint} S='
+                 f'{"/".join(map(str, nsamples))}')
+        if not timed:
+            print(f'  sa_level L{level} {shape}  equal to plain, max_abs_err '
+                  f'{err:.3g}', flush=True)
+            continue
+        times = {'ms': cuda_ms(sa_level.sa_level_fused, args, 10),
+                 'plain_ms': cuda_ms(sa_level.sa_level_fused_plain, args, 2),
+                 'default_ms': cuda_ms(default_level, args, 5)}
+        add_times(tot, times)
         flops, nbytes = k5_work(args, want[0])
         bms, by = bound_ms(flops, nbytes)
-        c = 0 if feats is None else feats.shape[-1]
-        print(f'  sa_level L{level} N={xyz.shape[1]} C={c} M={npoint} S='
-              f'{"/".join(map(str, nsamples))}  kernel {ms:9.4f} ms  plain '
-              f'{plain:9.4f} ms  default path (K1+ball query+K4) '
-              f'{dflt:9.4f} ms  bound {bms:.4f} ms ({by})  max_abs_err '
-              f'{err:.3g}', flush=True)
-        tot['ms'] += ms
-        tot['plain_ms'] += plain
-        tot['default_ms'] += dflt
         tot['t_ops'] += flops / PEAK_F32_FLOPS
         tot['t_bytes'] += nbytes / PEAK_BYTES
-        tot['max_abs_err'] = max(tot['max_abs_err'], err)
+        print(f'  sa_level L{level} {shape}  kernel {show(times["ms"])}  '
+              f'plain {show(times["plain_ms"])}  default path (K1+ball '
+              f'query+K4) {show(times["default_ms"])}  bound {bms:.4f} ms '
+              f'({by})  max_abs_err {err:.3g}', flush=True)
     return tot
 
 
@@ -627,13 +648,19 @@ def lockstep_inputs(frames, t, streams):
 
 
 def run_batched(bjoint, cfg, frames):
-    """Phase 8: one warm-up lockstep frame, then 3 with per-frame launch
-    and host-read checks.  Returns (ms a lockstep frame, launches, rows
-    emitted a lockstep frame)."""
+    """Phase 8: one lockstep frame records every kernel's inputs, which are
+    then held against the plain versions; then 3 frames with per-frame
+    launch and host-read checks.  Returns (ms a lockstep frame, launches,
+    rows emitted a lockstep frame)."""
     from jmodt_torch.ops import kernels
     from jmodt_torch.tracking import device_tracker
     states = new_state(cfg, streams=STREAMS)
-    states, _ = bjoint(states, *lockstep_inputs(frames, 0, STREAMS))
+    recorded, (states, _) = record_kernel_inputs(
+        lambda: bjoint(states, *lockstep_inputs(frames, 0, STREAMS)))
+    level0 = tuple(recorded[0]['fps'][0][0].shape)
+    check(level0 == (STREAMS, cfg.RPN.NUM_POINTS, 3),
+          f'streams: K1 took {level0}, expected level 0 of all streams')
+    check_kernels(recorded, PER_FRAME_JOINT, timed=False)
     inputs = [lockstep_inputs(frames, t, STREAMS) for t in (1, 2, 3)]
     kernels.launches.clear()
     reads0 = device_tracker.host_syncs
@@ -665,22 +692,6 @@ def run_batched(bjoint, cfg, frames):
         emitted += int((packed[..., 9] > 0.5).sum())
     check(emitted > 0, 'streams: no row emitted in 3 lockstep frames')
     return ms, counts, emitted / len(packs)
-
-
-def check_fps_streams(frames, npoint=4096):
-    """Phase 8: RPN level 0 of a lockstep frame, (S, 16384, 3) -> npoint,
-    goes to K1's block kernel, one launch, and equals the plain version."""
-    from jmodt_torch.ops import kernels, sampling
-    xyz = torch.as_tensor(lockstep_inputs(frames, 0, STREAMS)[1],
-                          device='cuda')[..., :3].contiguous()
-    before = dict(kernels.launches)
-    got = sampling.farthest_point_sample(xyz, npoint)
-    check(kernels.launches['fps'] == before.get('fps', 0) + 1
-          and kernels.launches['fps_batched'] == before.get('fps_batched', 0),
-          'streams: level-0 FPS did not take K1 once')
-    check(torch.equal(got, sampling.farthest_point_sample_plain(xyz, npoint)),
-          f'streams: K1 at B={xyz.shape[0]} differs from plain')
-    return tuple(xyz.shape)
 
 
 def batched_parity(frames, streams=2, n_frames=2):
@@ -773,7 +784,10 @@ def main() -> int:
     step = make_detection_step(cfg, model)
     print('[2 kernels] inputs recorded from one detection step; kernel vs '
           'plain version:', flush=True)
-    agg = check_kernels(record_kernel_inputs(step, model, frames[3]))
+    f = frames[3]
+    recorded, _ = record_kernel_inputs(
+        lambda: step(f['pts_input'], f['img'], f['pts_xy']))
+    agg = check_kernels(recorded, PER_FRAME)
 
     ms, counts, _ = run_step(step, frames[:3])
     print(f'[3 step] default Config (bfloat16), 3 frames: {ms:.2f} ms/frame'
@@ -789,7 +803,11 @@ def main() -> int:
     joint = build_joint(mcfg)
     print('[5 K5] inputs recorded from one joint step (RPN.MEGA_SA); kernel '
           'vs plain version:', flush=True)
-    agg['sa_level'] = check_k5(record_k5_inputs(joint, mcfg, frames[3]))
+    recorded, _ = record_kernel_inputs(
+        lambda: joint(new_state(mcfg), 1, f['pts_input'], f['img'],
+                      f['pts_xy']))
+    agg.update(check_kernels(
+        recorded, {'sa_level': PER_FRAME_JOINT['sa_level']}))
 
     jms, jcounts, rows_per_frame, kept = run_joint(joint, mcfg, frames)
     print(f'[6 joint] Config() with RPN.MEGA_SA (bfloat16), 4 frames: '
@@ -804,6 +822,8 @@ def main() -> int:
           + ', '.join(f'{e:.3g}' for e in jerrs), flush=True)
 
     bjoint = build_joint(mcfg, batched=True)
+    print(f'[8 streams] inputs recorded from one lockstep frame (S={STREAMS}'
+          '); kernel vs plain version:', flush=True)
     bms, bcounts, brows = run_batched(bjoint, mcfg, frames)
     del bjoint
     print(f'[8 streams] make_batched_joint_step, S={STREAMS} (bfloat16), 3 '
@@ -811,9 +831,6 @@ def main() -> int:
           f'{bms / STREAMS:.2f} ms a stream-frame, {brows:.2f} rows emitted '
           f'a lockstep frame, {HOST_READS} tracker host reads a frame; '
           f'launches {bcounts}', flush=True)
-    shape = check_fps_streams(frames)
-    print(f'[8 streams] level-0 FPS {shape} -> 4096: one K1 launch, equal to '
-          'plain', flush=True)
     berrs, bemit = batched_parity(frames)
     print('[8 streams] float32 S=2 lockstep vs independent joint steps, 2 '
           f'frames: tid, emit equal ({bemit} rows emitted); boxes / scores '
@@ -838,7 +855,8 @@ def main() -> int:
             'bound_ms': max(a['t_ops'], a['t_bytes']) * 1e3,
             'bound_by': ('operations' if a['t_ops'] >= a['t_bytes']
                          else 'bytes'),
-            'library_ms': a['library_ms']})
+            'library_ms': a['library_ms'],
+            'host_clocked': sorted(a['host_clocked'])})
         if 'default_ms' in a:
             rows[-1]['default_path_ms'] = a['default_ms']
         if 'deconv_ms' in a:

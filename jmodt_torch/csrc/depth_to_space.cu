@@ -19,8 +19,9 @@
 // 16-byte vector of the output, so neighbouring threads read and write
 // neighbouring addresses and no vector crosses a run.  A row of blocks
 // covers one output row, so the per-thread index arithmetic is 32-bit.  No
-// shared memory: nothing is reused.  Where a pointer or k*r does not allow
-// 16-byte vectors the same kernel runs one element a thread.
+// shared memory: nothing is reused.  Both pointers must be 16-byte aligned
+// and k*r a multiple of the vector (8 bf16, 4 float32); every pyramid level
+// (r = 16) is, and the wrapper refuses anything else.
 #include <cuda_bf16.h>
 
 #include <cstdint>
@@ -40,14 +41,16 @@ __device__ __forceinline__ void from_f(float v, __nv_bfloat16* o) {
   *o = __float2bfloat16_rn(v);
 }
 
-// Vec elements of T a thread; Vec divides k*r.  blockIdx.y walks the
-// output rows (b*h0*k + Y), blockIdx.x * kThreads + threadIdx.x is the
-// vector within the row, so a thread's index arithmetic is 32-bit.
-template <typename T, int Vec>
+// One 16-byte vector of Vec elements a thread; Vec divides k*r.
+// blockIdx.y walks the output rows (b*h0*k + Y), blockIdx.x * kThreads +
+// threadIdx.x is the vector within the row, so a thread's index arithmetic
+// is 32-bit.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     d2s_kernel(const T* __restrict__ taps, const T* __restrict__ bias,
                int rows, int k, int r, int w0, T* __restrict__ out) {
-  struct alignas(sizeof(T) * Vec) Pack {
+  constexpr int Vec = 16 / sizeof(T);
+  struct alignas(16) Pack {
     T v[Vec];
   };
   const int kr = k * r;
@@ -81,24 +84,17 @@ cudaError_t launch(const void* taps, const void* bias, int batch, int h0,
   constexpr int kVec = 16 / sizeof(T);
   const int64_t rows = static_cast<int64_t>(batch) * h0 * k;
   const int64_t row_len = static_cast<int64_t>(w0) * k * r;
+  if ((k * r) % kVec != 0 || reinterpret_cast<uintptr_t>(taps) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
   if (rows > INT32_MAX || row_len > INT32_MAX / 2)
     return cudaErrorInvalidValue;
-  const bool vec = (k * r) % kVec == 0 &&
-                   reinterpret_cast<uintptr_t>(taps) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int per = vec ? kVec : 1;
-  const dim3 grid((row_len / per + kThreads - 1) / kThreads,
+  const dim3 grid((row_len / kVec + kThreads - 1) / kThreads,
                   static_cast<unsigned>(rows < 65535 ? rows : 65535));
-  const T* t = static_cast<const T*>(taps);
-  const T* b = static_cast<const T*>(bias);
-  T* o = static_cast<T*>(out);
-  if (vec)
-    d2s_kernel<T, kVec><<<grid, kThreads, 0, stream>>>(
-        t, b, static_cast<int>(rows), k, r, w0, o);
-  else
-    d2s_kernel<T, 1><<<grid, kThreads, 0, stream>>>(
-        t, b, static_cast<int>(rows), k, r, w0, o);
+  d2s_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(taps), static_cast<const T*>(bias),
+      static_cast<int>(rows), k, r, w0, static_cast<T*>(out));
   return cudaGetLastError();
 }
 

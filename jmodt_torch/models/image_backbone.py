@@ -69,7 +69,9 @@ class NonOverlapDeconv(nn.Module):
     taps, (B*H*W, C) @ (C, k*k*R), then the depth-to-space move with the
     bias (K6 on a CUDA tensor).  The weight keeps ConvTranspose2d's layout
     (Cin, Cout, k, k); its (Cin, k, k, Cout) permutation is the JAX
-    package's tap-major matrix."""
+    package's tap-major matrix.  Without autograd that matrix and the bias,
+    in the compute dtype, are built once and kept until a parameter changes
+    (a new tensor, or an in-place write such as load_state_dict's)."""
 
     def __init__(self, cin: int, features: int, kernel: int,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -79,15 +81,30 @@ class NonOverlapDeconv(nn.Module):
         self.weight = nn.Parameter(torch.empty(cin, features, kernel, kernel,
                                                device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self._tables = None         # (parameter key, wmat, bias), no autograd
+
+    def _tap_major(self):
+        """(Cin, k*k*R) weight matrix and (R,) bias in the compute dtype."""
+        w, bias, k = self.weight, self.bias, self.kernel
+        key = (w.data_ptr(), w._version, bias.data_ptr(), bias._version)
+        grad = torch.is_grad_enabled()
+        if not grad and self._tables is not None and self._tables[0] == key:
+            return self._tables[1:]
+        c, r = w.shape[:2]
+        wmat = w.permute(0, 2, 3, 1).reshape(c, k * k * r).to(self.dtype)
+        bias = bias.to(self.dtype)
+        if not grad:
+            self._tables = (key, wmat, bias)
+        return wmat, bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt, k = self.dtype, self.kernel
+        k = self.kernel
         b, h, w, c = x.shape
-        r = self.bias.shape[0]
-        wmat = self.weight.permute(0, 2, 3, 1).reshape(c, k * k * r)
-        taps = torch.matmul(x.reshape(b * h * w, c).to(dt), wmat.to(dt))
+        wmat, bias = self._tap_major()
+        r = bias.shape[0]
+        taps = torch.matmul(x.reshape(b * h * w, c).to(self.dtype), wmat)
         out = depth_to_space(taps.reshape(b, h * w, k * k * r), k, r, h, w,
-                             self.bias.to(dt))
+                             bias)
         return out.reshape(b, h * k, w * k, r)
 
 

@@ -11,7 +11,10 @@ On a CUDA tensor `depth_to_space` launches K6
 (`jmodt_torch/csrc/depth_to_space.cu`, replaces
 `jmodt_tpu/ops/pallas/depth_to_space.py::depth_to_space_pallas`); on a CPU
 tensor it runs `depth_to_space_plain`, a view + permute + reshape, which is
-also what the kernel is checked against on the card.  float32 and bfloat16.
+also what the kernel is checked against on the card.  float32 and bfloat16;
+the kernel moves 16-byte vectors, so it takes k*r a multiple of 8 (bf16) or
+4 (float32) and 16-byte aligned tables, which every pyramid level (r = 16)
+gives.
 """
 
 from __future__ import annotations
@@ -44,7 +47,13 @@ def _check(taps, k, r, h0, w0, bias, check=kernels.check_cuda) -> None:
                          f'{taps.dtype}')
     if min(k, r, h0, w0) < 1:
         raise ValueError(f'k={k}, r={r}, h0={h0}, w0={w0} must be >= 1')
+    vec = 16 // taps.element_size()          # K6 moves 16-byte vectors
+    if (k * r) % vec:
+        raise ValueError(f'k*r={k * r} must be a multiple of {vec} for '
+                         f'{taps.dtype}')
     check('taps', taps, taps.dtype, (None, h0 * w0, k * k * r))
+    if taps.data_ptr() % 16:
+        raise ValueError('taps: expected 16-byte aligned data')
     if bias is not None:
         check('bias', bias, taps.dtype, (r,))
 

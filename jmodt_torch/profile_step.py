@@ -25,7 +25,10 @@ default Config().  Synthetic frames; one warm-up frame first.  Prints:
   stream-frame), the device time of all kernels per frame from
   torch.profiler, and the device's idle share;
 * the kernels with the most device time per frame, and the host ops with
-  the most CPU time.
+  the most CPU time;
+* deconvs: wall ms per frame with each NonOverlapDeconv computed as the
+  port does (matmul + K6) and as one F.conv_transpose2d call, the two
+  taking frames in turn.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def _stage_hooks(model, times):
@@ -179,6 +183,36 @@ def _host_syncs(run, frames):
     return (device_tracker.host_syncs - before) / n, syncs / n
 
 
+def _compare_deconv(run, frames):
+    """(ms a frame with matmul + K6, ms a frame with conv_transpose2d),
+    wall clock, the two taking frames in turn."""
+    from jmodt_torch.models.image_backbone import NonOverlapDeconv
+    port = NonOverlapDeconv.forward
+    weights = {}
+
+    def library(mod, x):
+        if mod not in weights:
+            weights[mod] = (mod.weight.to(mod.dtype), mod.bias.to(mod.dtype))
+        w, b = weights[mod]
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2).to(mod.dtype), w, b,
+                               stride=mod.kernel)
+        return y.permute(0, 2, 3, 1)
+
+    total = [0.0, 0.0]
+    try:
+        for f in frames:
+            for i, forward in enumerate((port, library)):
+                NonOverlapDeconv.forward = forward
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(f)
+                torch.cuda.synchronize()
+                total[i] += (time.perf_counter() - t0) * 1e3
+    finally:
+        NonOverlapDeconv.forward = port
+    return total[0] / len(frames), total[1] / len(frames)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--path', default='joint',
@@ -268,6 +302,12 @@ def main() -> None:
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:20]:
         print(f'  {e.self_cpu_time_total / 1e3 / args.frames:9.3f}  '
               f'x{e.count // args.frames:<5d} {e.key[:90]}')
+
+    _compare_deconv(run, frames[:1])                 # warm-up of both
+    port, library = _compare_deconv(run, frames[1:])
+    print(f'deconvs: {port:.3f} ms a frame with matmul + K6, {library:.3f} '
+          f'ms with F.conv_transpose2d ({args.frames} frames each, in turn, '
+          'wall clock)')
 
 
 if __name__ == '__main__':

@@ -33,7 +33,7 @@ from jmodt_torch import config as torch_config
 from jmodt_torch.data import synthetic
 from jmodt_torch.models import image_backbone
 from jmodt_torch.models.inference import make_detection_step
-from jmodt_torch.models.point_rcnn import PointRCNN
+from jmodt_torch.models.point_rcnn import PointRCNN, init_weights
 from jmodt_torch.models.pointnet2 import FPModule, SAModuleMSG
 from jmodt_torch.weights import jax_variables_to_state_dict, \
     load_jax_variables
@@ -179,6 +179,28 @@ def test_non_overlap_deconv_matches_jax(k):
     got = tmod(_t(x))
     assert got.shape == want.shape == (2, 3 * k, 5 * k, 4)
     assert _rel_err(got.detach().numpy(), want) < TOL
+
+
+def test_non_overlap_deconv_keeps_its_table_until_a_load():
+    """Without autograd the tap-major table is built once; a new
+    state_dict (an in-place write) makes the next call rebuild it."""
+    rng = np.random.RandomState(7)
+    x = _t(rng.randn(1, 2, 3, 6).astype(np.float32))
+    mod = image_backbone.NonOverlapDeconv(6, 4, 2)
+    init_weights(mod, 0)
+    with torch.no_grad():
+        first = mod(x)
+        table = mod._tables[1]
+        np.testing.assert_array_equal(mod(x).numpy(), first.numpy())
+        assert mod._tables[1] is table
+        sd = {k: v + 1.0 for k, v in mod.state_dict().items()}
+        mod.load_state_dict(sd)
+        got = mod(x)
+    assert mod._tables[1] is not table
+    want = image_backbone.NonOverlapDeconv(6, 4, 2)
+    want.load_state_dict(sd)
+    np.testing.assert_array_equal(got.numpy(), want(x).detach().numpy())
+    assert not np.array_equal(got.numpy(), first.numpy())
 
 
 def test_feature_gather_matches_jax():

@@ -192,6 +192,10 @@ def _k6_args():
     (dict(bias=torch.zeros(16, dtype=torch.bfloat16)), 'float32'),
     (dict(bias=torch.zeros(8)), 'shape'),
     (dict(k=0), 'k=0'),
+    (dict(k=1, r=3, taps=torch.zeros(2, 15, 3), bias=torch.zeros(3)),
+     'multiple of 4'),
+    (dict(taps=torch.zeros(2 * 15 * 256 + 1)[1:].view(2, 15, 256)),
+     'aligned'),
 ])
 def test_k6_wrapper_checks(bad, match):
     """K6's wrapper refuses what its CUDA entry does not take (checked on
