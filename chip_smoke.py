@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero:
             at the four NonOverlapDeconv levels) is then run on those
             inputs and held against its plain PyTorch version: FPS and 3-NN
             indices equal, 3-NN distances within 1e-5 relative, K4 within
-            1e-4 of the output's scale, K6 equal bit for bit.  Times are
+            1e-4 of the output's scale, K6 equal bit for bit.  K1's
+            cluster plan (blocks x threads x points a thread) and us a step
+            are printed per call.  Times are
             device time from CUDA events, streaming from HBM (cuda_ms); a
             '*' and the kernel line's "host_clocked" mark a time the host's
             launches may have set.  K6 is also timed against
@@ -62,7 +64,10 @@ Phases, in order; any failure exits non-zero:
             of their scale.
 
 Prints a {"kernels": [...]} line (launches from phase 6; per path from
-phases 3, 6 and 8), the card's name
+phases 3, 6 and 8; per-call times and bounds; K1's largest placeable
+cluster, its cluster size at each N and us a step at level 0; K4's and K5's
+tensor-core route, with bounds at the TF32 peak for the three products of
+each multiply-add and, for reference, as float32 FMAs), the card's name
 and power limit, and as its last line {"ok": true, "device": {...}}.  Needs
 one card; without one it exits non-zero before printing any result.
 """
@@ -79,9 +84,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
+# dense TF32 on the tensor cores, HBM
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# K4's layers 2..L (also K5's MLP phase) on the tensor cores: each product
+# is three TF32 products (a_lo w_hi + a_hi w_lo + a_hi w_hi) for float32
+# accuracy (jmodt_torch/csrc/grouped_mlp.cuh)
+K4_ROUTE = 'mma.sync.m16n8k8 tf32, 3xTF32'
+K4_PASSES = 3
 # torch.cuda._sleep counts SM clock cycles; the H100's top SM clock
 SLEEP_HZ = 1.98e9
 ROTATE_BYTES = 100 << 20        # twice the H100's 50 MB L2
@@ -174,10 +186,21 @@ def scale_err(got: torch.Tensor, want: torch.Tensor) -> float:
                  / max(1.0, float(want.abs().max())))
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(t_ops: float, nbytes: float):
+    """(least ms, what bounds it) for work taking `t_ops` seconds at the
+    card's peak rates and moving `nbytes`."""
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
                                        else 'bytes')
+
+
+def mlp_flops(rows: int, widths) -> tuple:
+    """(tensor-core multiply-add flops, other float32 flops) of K4's
+    layers 2..L over `rows` rows, widths [C1, .., CL]: the products, then
+    the layer-1 add / subtract / ReLU and every bias add and ReLU."""
+    pairs = list(zip(widths[:-1], widths[1:]))
+    return (rows * sum(2.0 * ci * co for ci, co in pairs),
+            rows * (3.0 * widths[0] + sum(2.0 * co for _, co in pairs)))
 
 
 def tally(*cols):
@@ -185,7 +208,7 @@ def tally(*cols):
     column, the bound's two times, the largest error, and the columns that
     some call timed by the host's clock."""
     return dict({c: 0.0 for c in cols}, t_ops=0.0, t_bytes=0.0,
-                max_abs_err=0.0, host_clocked=set())
+                t_f32=0.0, max_abs_err=0.0, host_clocked=set(), per_call=[])
 
 
 def add_times(tot, times):
@@ -266,7 +289,7 @@ def check_kernels(recorded, per_frame, timed=True):
     and library times and its bound.  Returns {kernel name: aggregate over
     the frame's calls}."""
     from jmodt_torch.ops import depth_to_space as d2s
-    from jmodt_torch.ops import fused_sa, interpolate, sampling
+    from jmodt_torch.ops import fused_sa, interpolate, kernels, sampling
     calls, deconvs = recorded
     agg = {}
     for name, per in per_frame.items():
@@ -279,6 +302,7 @@ def check_kernels(recorded, per_frame, timed=True):
         tot = tally('ms', 'plain_ms', 'library_ms')
         for i, args in enumerate(args_list):
             extra = ''
+            t_ops = None
             if name in ('fps', 'fps_batched'):
                 xyz, npoint = args
                 b, n, _ = xyz.shape
@@ -291,6 +315,13 @@ def check_kernels(recorded, per_frame, timed=True):
                 flops = 9.0 * b * n * (npoint - 1)
                 nbytes = b * (12.0 * n + 4.0 * npoint)
                 shape = f'B={b} {n}->{npoint}'
+                call = dict(b=b, n=n, npoint=npoint)
+                if name == 'fps':
+                    plan = sampling.fps_launch_plan(
+                        n, kernels.fps_max_cluster())
+                    call.update(zip(('cluster', 'threads', 'ppt'), plan))
+                    extra = (f' cluster {plan[0]} x {plan[1]} threads x '
+                             f'{plan[2]} points')
             elif name == 'three_nn':
                 u, kn = args
                 b, n, m = u.shape[0], u.shape[1], kn.shape[1]
@@ -309,6 +340,7 @@ def check_kernels(recorded, per_frame, timed=True):
                 flops = 8.0 * b * n * m
                 nbytes = 12.0 * b * (n + m) + 24.0 * b * n
                 shape = f'B={b} {n}x{m}'
+                call = dict(b=b, n=n, m=m)
             elif name == 'depth_to_space':
                 taps, k, r, h0, w0, bias = args
                 b = taps.shape[0]
@@ -326,6 +358,7 @@ def check_kernels(recorded, per_frame, timed=True):
                                * (taps.numel() + r + got.numel()))
                 shape = (f'B={b} k={k} {h0}x{w0}x{k * k * r}->{h0 * k}x'
                          f'{w0 * k}x{r}')
+                call = dict(b=b, k=k)
                 if timed:
                     check(len(deconvs) == per,
                           f'{len(deconvs)} NonOverlapDeconv calls a frame')
@@ -356,15 +389,17 @@ def check_kernels(recorded, per_frame, timed=True):
                 err = float((got - want).abs().max())
                 rows = b * m * s
                 widths = [c1] + [w.shape[1] for w, _ in layers]
-                flops = rows * (3.0 * c1 + sum(
-                    2.0 * ci * co + 2.0 * co
-                    for ci, co in zip(widths[:-1], widths[1:])))
+                mma, other = mlp_flops(rows, widths)
+                flops = mma + other
+                t_ops = (K4_PASSES * mma / PEAK_TF32_FLOPS
+                         + other / PEAK_F32_FLOPS)
                 nbytes = 4.0 * (feats1.numel() + idx.numel() + cxw.numel()
                                 + c1 + sum(w.numel() + bb.numel()
                                            for w, bb in layers)
                                 + b * m * widths[-1])
                 shape = (f'B={b} N={n} M={m} S={s} '
                          f'{"->".join(map(str, widths))}')
+                call = dict(b=b, m=m, s=s, widths=widths)
             tot['max_abs_err'] = max(tot['max_abs_err'], err)
             if not timed:
                 print(f'  {name:24s} {shape:38s} equal to plain, max_abs_err '
@@ -374,9 +409,17 @@ def check_kernels(recorded, per_frame, timed=True):
                      for col, fn, n in zip(('ms', 'plain_ms', 'library_ms'),
                                            fns, reps)}
             add_times(tot, times)
-            bms, by = bound_ms(flops, nbytes)
-            tot['t_ops'] += flops / PEAK_F32_FLOPS
+            if t_ops is None:
+                t_ops = flops / PEAK_F32_FLOPS
+            bms, by = bound_ms(t_ops, nbytes)
+            tot['t_ops'] += t_ops
             tot['t_bytes'] += nbytes / PEAK_BYTES
+            tot['t_f32'] += flops / PEAK_F32_FLOPS
+            call.update(ms=times['ms'][0], bound_ms=bms)
+            if name == 'fps':
+                call['us_per_step'] = times['ms'][0] * 1e3 / (npoint - 1)
+                extra += f', {call["us_per_step"]:.3f} us a step'
+            tot['per_call'].append(call)
             print(f'  {name:24s} {shape:38s} kernel {show(times["ms"])}  '
                   f'plain {show(times["plain_ms"])}  library '
                   f'{show(times["library_ms"])}  bound {bms:.4f} ms ({by})  '
@@ -489,10 +532,13 @@ def new_state(cfg, device=None, streams=None):
 
 
 def k5_work(args, new_xyz):
-    """(float32 operations, bytes) one K5 call needs on these inputs.  The
+    """(seconds at peak for the operations, bytes) one K5 call needs on
+    these inputs.  The MLP phase's products run on the tensor cores
+    (K4_PASSES TF32 products each), everything else in float32 FMAs.  The
     ball query counts, per centre, the points up to the last one the scan
     must see: the nsample-th hit of the slowest scale, or the whole cloud
-    when a ball is not full."""
+    when a ball is not full.  Also returns the operations' seconds were
+    they all float32 FMAs."""
     from jmodt_torch.ops.grouping import pairwise_d2
     xyz, feats, npoint, radii, nsamples, folded = args
     b, n, _ = xyz.shape
@@ -507,17 +553,18 @@ def k5_work(args, new_xyz):
     flops = 9.0 * b * n * (npoint - 1)                       # FPS
     flops += float(need.sum()) * (13 + len(radii))           # ball query
     nbytes = 12.0 * b * n + 4.0 * b * n * c + 16.0 * b * npoint
+    mma = 0.0
     for ns, layers in zip(nsamples, folded):
         widths = [3 + c] + [w.shape[1] for w, _ in layers]
-        rows = b * npoint * ns
         flops += 2.0 * b * n * widths[0] * widths[1]         # table
         flops += 6.0 * b * npoint * widths[1]                # cxw
-        flops += rows * (3.0 * widths[1] + sum(
-            2.0 * ci * co + 2.0 * co
-            for ci, co in zip(widths[1:-1], widths[2:])))
+        m_flops, other = mlp_flops(b * npoint * ns, widths[1:])
+        mma += m_flops
+        flops += other
         nbytes += 4.0 * (sum(w.numel() + bb.numel() for w, bb in layers)
                          + b * npoint * widths[-1])
-    return flops, nbytes
+    t_ops = flops / PEAK_F32_FLOPS + K4_PASSES * mma / PEAK_TF32_FLOPS
+    return t_ops, nbytes, (flops + mma) / PEAK_F32_FLOPS
 
 
 def default_level(xyz, feats, npoint, radii, nsamples, folded):
@@ -559,10 +606,13 @@ def check_k5(calls, timed=True):
                  'plain_ms': cuda_ms(sa_level.sa_level_fused_plain, args, 2),
                  'default_ms': cuda_ms(default_level, args, 5)}
         add_times(tot, times)
-        flops, nbytes = k5_work(args, want[0])
-        bms, by = bound_ms(flops, nbytes)
-        tot['t_ops'] += flops / PEAK_F32_FLOPS
+        t_ops, nbytes, t_f32 = k5_work(args, want[0])
+        bms, by = bound_ms(t_ops, nbytes)
+        tot['t_ops'] += t_ops
         tot['t_bytes'] += nbytes / PEAK_BYTES
+        tot['t_f32'] += t_f32
+        tot['per_call'].append(dict(level=level, n=xyz.shape[1], m=npoint,
+                                    ms=times['ms'][0], bound_ms=bms))
         print(f'  sa_level L{level} {shape}  kernel {show(times["ms"])}  '
               f'plain {show(times["plain_ms"])}  default path (K1+ball '
               f'query+K4) {show(times["default_ms"])}  bound {bms:.4f} ms '
@@ -857,11 +907,22 @@ def main() -> int:
                          else 'bytes'),
             'library_ms': a['library_ms'],
             'host_clocked': sorted(a['host_clocked'])})
+        row = rows[-1]
+        if k['name'] in ('grouped_gather_mlp_max', 'sa_level'):
+            row['tensor_cores'] = K4_ROUTE
+            row['bound_f32_fma_ms'] = max(a['t_f32'], a['t_bytes']) * 1e3
+        if k['name'] == 'fps':
+            row['max_cluster'] = kernels.fps_max_cluster()
+            row['cluster_by_n'] = {str(c['n']): c['cluster']
+                                   for c in a['per_call']}
+            row['us_per_step_level0'] = a['per_call'][0]['us_per_step']
+        if a['per_call']:
+            row['per_call'] = a['per_call']
         if 'default_ms' in a:
-            rows[-1]['default_path_ms'] = a['default_ms']
+            row['default_path_ms'] = a['default_ms']
         if 'deconv_ms' in a:
-            rows[-1]['deconv_ms'] = a['deconv_ms']
-            rows[-1]['deconv_library_ms'] = a['deconv_library_ms']
+            row['deconv_ms'] = a['deconv_ms']
+            row['deconv_library_ms'] = a['deconv_library_ms']
     print(json.dumps({'kernels': rows}))
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,

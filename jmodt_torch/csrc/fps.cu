@@ -5,22 +5,36 @@
 // Semantics: idx[0] = 0, the running min-distance starts at 1e10, and each
 // step takes the argmax of the min-distance with ties to the smaller index.
 //
-// What bounds it on an H100: the npoint steps are sequential, each
-// depending on the argmax of the one before, so the time is npoint times
-// the latency of one step (a pass over the cloud plus a block-wide argmax),
-// not bytes or FLOPs; one cloud keeps one SM busy.
+// What bounds it on an H100: step latency.  The npoint steps are
+// sequential, each depending on the argmax of the one before, so the time
+// is npoint times the latency of one step (a pass over the cloud plus an
+// argmax across the threads that hold it), not bytes or FLOPs.
 //
-// Design: K1 runs one 1024-thread block per cloud (fps.cuh, shared with
-// K5's FPS phase) with the coordinates in shared memory and each thread's
-// min-distances in registers.  K2 gives each small cloud (N <= 1024) one
-// warp, holding coordinates and min-distances in registers, so a step
-// needs no barrier at all, and spreads the clouds over the SMs one warp
-// per block.
+// Design: K1 (fps.cuh, shared with K5's FPS phase) runs one thread-block
+// cluster per cloud, up to 16 blocks that each hold a slice of the cloud in
+// registers and exchange one candidate a step through distributed shared
+// memory, so level 0 (16384 points) is spread over 16 SMs with one block
+// barrier and one cluster barrier a step.  K2 gives each small cloud
+// (N <= 1024) one warp, holding coordinates and min-distances in registers,
+// so a step needs no barrier at all, and spreads the clouds over the SMs
+// one warp per block.
 #include <climits>
 
 #include "fps.cuh"
 
 namespace {
+
+__device__ __forceinline__ void warp_argmax(float& v, int& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (better(ov, oi, v, i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
 
 template <int PPT>
 __global__ void fps_warp_kernel(const float* __restrict__ xyz, int batch,
@@ -78,11 +92,17 @@ JMODT_API const char* jmodt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The largest K1 cluster the card can place, into *out (queried once by
+// the wrapper).
+JMODT_API int jmodt_fps_max_cluster(int* out) { return fps_max_cluster(out); }
+
 // xyz (batch, n, 3) float32 contiguous -> out (batch, npoint) int32; one
-// block per cloud.  n <= 232448 / 12 (coordinates in shared memory).
+// cluster of csize blocks per cloud, `threads` threads a block, ppt points
+// a thread (jmodt_torch/ops/sampling.py::fps_launch_plan).
 JMODT_API int jmodt_fps(const float* xyz, int batch, int n, int npoint,
-                        int* out, cudaStream_t stream) {
-  return fps_blocks(xyz, batch, n, npoint, out, stream);
+                        int csize, int threads, int ppt, int* out,
+                        cudaStream_t stream) {
+  return fps_blocks(xyz, batch, n, npoint, csize, threads, ppt, out, stream);
 }
 
 // xyz (batch, n, 3) float32 contiguous -> out (batch, npoint) int32; one

@@ -20,14 +20,14 @@
 // picks the same neighbours as the plain version even at r^2.
 //
 // What bounds it on an H100: at the main path's three levels the work is
-// small (under 1 GFLOP of float32 MLP at level 1, a few MB of tables); the
-// FPS phase is sequential, M steps of one block's latency each, and is the
-// longest phase.
+// small (about 1 GFLOP of MLP a level, a few MB of tables); the FPS phase
+// is sequential, M steps of one cluster's latency each.
 //
 // Design: the TPU ran one program per cloud with everything in VMEM.  Here
 // one C entry launches four phases in stream order, so that all but FPS
 // spread over the card:
-//   1. FPS, one block per cloud: K1's kernel (fps.cuh).
+//   1. FPS, one thread-block cluster per cloud: K1's kernel (fps.cuh), laid
+//      out by the wrapper's plan (fps_cluster, fps_threads, fps_ppt).
 //   2. The layer-1 tables of all scales, a register-tiled float32 product
 //      (64 x 64 outputs a block, 4 x 4 a thread) reading catf straight
 //      from xyz and feats.  The tables stay in global scratch, where L2
@@ -38,8 +38,9 @@
 //      scale holds S hits.  The TPU's triangular-matmul rank, one-hot
 //      gather and bf16 hi/lo tables are not needed.
 //   4. Per scale, K4's grouped MLP (grouped_mlp.cuh): gather of the table
-//      rows, layers 2..L and the max, into the scale's columns of pooled.
-// Everything is float32; no tensor cores.
+//      rows, layers 2..L on the tensor cores at float32 accuracy (3xTF32)
+//      and the max, into the scale's columns of pooled.
+// Phases 1-3 and the inputs of phase 4 are float32 FMA or exact float32.
 #include <cmath>
 
 #include "common.cuh"
@@ -206,21 +207,25 @@ __global__ void __launch_bounds__(kSaThreads)
 }  // namespace
 
 // One SA level.  xyz (batch, n, 3), feats (batch, n, c) or null (c = 0),
-// all float32 contiguous.  Per scale s < nscales (host arrays):
+// all float32 contiguous; the FPS phase runs clusters of fps_cluster blocks
+// of fps_threads threads, fps_ppt points a thread.  Per scale s < nscales
+// (host arrays):
 // radii2[s] (float32 r^2), nsamples[s] (a multiple of 4 dividing 64),
 // n_layers[s] in 2..kMaxLayers + 1, dims[s * (kMaxLayers + 2) + l] the
 // widths [3 + c, C1, .., CL], weights / biases[s * (kMaxLayers + 1) + l]
-// the folded (Cin, Cout) / (Cout,) layers, smem_bytes[s] the MLP phase's
-// dynamic shared memory (the wrapper's count), and device scratch
+// the folded (Cin, Cout) / (Cout,) layers, smem_bytes[s] and col_splits[s]
+// the MLP phase's dynamic shared memory and column split (the wrapper's
+// plan), and device scratch
 // tables[s] (batch, n, C1), cxws[s] (batch, npoint, C1), nbrs[s]
 // (batch, npoint, S) int32.  Outputs idx (batch, npoint) int32, new_xyz
 // (batch, npoint, 3) and pooled (batch, npoint, sum CL), scale s in its
 // columns, in order.
 JMODT_API int jmodt_sa_level(
     const float* xyz, const float* feats, int batch, int n, int c,
-    int npoint, int nscales, const float* radii2, const int* nsamples,
-    const int* n_layers, const int* dims, const float* const* weights,
-    const float* const* biases, const int* smem_bytes, float* const* tables,
+    int npoint, int fps_cluster, int fps_threads, int fps_ppt, int nscales,
+    const float* radii2, const int* nsamples, const int* n_layers,
+    const int* dims, const float* const* weights, const float* const* biases,
+    const int* smem_bytes, const int* col_splits, float* const* tables,
     float* const* cxws, int* const* nbrs, int* idx, float* new_xyz,
     float* pooled, cudaStream_t stream) {
   if (nscales < 1 || nscales > kMaxScales || npoint < 1 || npoint > n)
@@ -233,6 +238,14 @@ JMODT_API int jmodt_sa_level(
     if (n_layers[s] < 2 || n_layers[s] > kMaxLayers + 1 || d[0] != 3 + c ||
         ns < 4 || kRows % ns != 0)
       return cudaErrorInvalidValue;
+    const int passes = (d[n_layers[s]] + kPassN - 1) / kPassN;
+    if (col_splits[s] < 1 || col_splits[s] > passes)
+      return cudaErrorInvalidValue;
+    for (int l = 2; l <= n_layers[s]; ++l)  // K4's MLP: 16-byte cp.async
+      if (d[l] % 4 != 0 ||
+          reinterpret_cast<size_t>(weights[s * (kMaxLayers + 1) + l - 1]) %
+                  16 != 0)
+        return cudaErrorInvalidValue;
     sc.r2[s] = radii2[s];
     sc.ns[s] = ns;
     sc.c1[s] = d[1];
@@ -244,7 +257,8 @@ JMODT_API int jmodt_sa_level(
     max_c1 = max(max_c1, d[1]);
   }
 
-  cudaError_t err = fps_blocks(xyz, batch, n, npoint, idx, stream);
+  cudaError_t err = fps_blocks(xyz, batch, n, npoint, fps_cluster,
+                               fps_threads, fps_ppt, idx, stream);
   if (err != cudaSuccess) return err;
 
   const int rows = batch * n;
@@ -277,7 +291,7 @@ JMODT_API int jmodt_sa_level(
                                smem_bytes[s]);
     if (err != cudaSuccess) return err;
     const int tm = kRows / sc.ns[s];
-    const dim3 grid((npoint + tm - 1) / tm, batch);
+    const dim3 grid((npoint + tm - 1) / tm, batch, col_splits[s]);
     grouped_gather_mlp_max_kernel<<<grid, kThreads, smem_bytes[s], stream>>>(
         sc.table[s], sc.nbr[s], sc.cxw[s], biases[s * (kMaxLayers + 1)], n,
         npoint, sc.ns[s], n_rest, L, pooled + col, width);

@@ -9,14 +9,16 @@ each Dense, layer 1 of the grouped MLP is hoisted before the gather:
 and the remaining layers and the max over the S samples follow.  The two
 hoisted products are plain `torch.matmul`.  On a CUDA tensor the rest runs
 in K4 (`jmodt_torch/csrc/grouped_gather_mlp.cu`, replaces
-`jmodt_tpu/ops/pallas/grouped_gather_mlp.py::grouped_gather_mlp_max`); on a
-CPU tensor in `grouped_gather_mlp_max_plain`.  Always float32.
+`jmodt_tpu/ops/pallas/grouped_gather_mlp.py::grouped_gather_mlp_max`),
+whose layers 2..L run on the tensor cores at float32 accuracy (3xTF32,
+`jmodt_torch/csrc/grouped_mlp.cuh`); on a CPU tensor in
+`grouped_gather_mlp_max_plain`.  Always float32.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -24,10 +26,21 @@ from jmodt_torch.ops import kernels
 from jmodt_torch.ops.grouping import group_points_fl
 
 _BN_EPS = 1e-5
-# K4 works on 64-row tiles (centres x samples) and 4 extra MLP layers at most
+# K4 (grouped_mlp.cuh) works on 64-row blocks (centres x samples), 4 MLP
+# layers after the first at most, 128-column passes over a ring of 2
+# weight tiles 32 deep
 _K4_ROWS = 64
 _K4_MAX_LAYERS = 4
+_K4_PASS = 128
+_K4_TILE_K = 32
+_K4_STAGES = 2
 _K4_SMEM_LIMIT = 232448
+# one wave of blocks on an H100: 132 SMs of 228 KB of shared memory, at
+# most 2 blocks an SM (registers); a plan with fewer blocks splits the last
+# layer's column passes over more, up to one wave
+_K4_SMS = 132
+_K4_SM_SMEM = 233472
+_K4_BLOCKS_PER_SM = 2
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -62,15 +75,70 @@ def grouped_gather_mlp_max_plain(feats1: torch.Tensor, idx: torch.Tensor,
     return h.amax(dim=2)
 
 
+def _pad8(c: int) -> int:
+    return -(-c // 8) * 8
+
+
 def _k4_smem_bytes(s: int, widths: Sequence[int]) -> int:
-    """Shared memory K4 needs: two activation buffers of 64 rows (+4 pad) x
-    the widest layer input at even / odd depth, one 32 x 64 weight tile and
-    the (64 / S) x 64 output tile."""
-    ins = widths[:-1]
+    """Shared memory K4 needs: two activation buffers of 64 rows (+8 pad) x
+    the widest layer input at even / odd depth (padded to 8 channels), two
+    32 x 128 (+8 pad) weight tiles and the (64 / S) x 128 output tile."""
+    ins = [_pad8(w) for w in widths[:-1]]
     even = max(ins[0::2])
     odd = max(ins[1::2], default=0)
-    rs = _K4_ROWS + 4
-    return 4 * (rs * (even + odd) + 32 * 64 + (_K4_ROWS // s) * 64)
+    return 4 * ((_K4_ROWS + 8) * (even + odd)
+                + _K4_STAGES * _K4_TILE_K * (_K4_PASS + 8)
+                + (_K4_ROWS // s) * _K4_PASS)
+
+
+class K4Plan(NamedTuple):
+    rows: int               # rows (centres x samples) a block
+    centres: int            # centres a block
+    grid: Tuple[int, int, int]   # blocks over M, over B, column split
+    passes: Tuple[int, ...]  # 128-column passes of each layer 2..L
+    smem: int               # dynamic shared memory bytes a block
+
+    @property
+    def col_split(self) -> int:
+        """Blocks sharing the last layer's column passes."""
+        return self.grid[2]
+
+
+def k4_launch_plan(b: int, m: int, s: int, widths: Sequence[int]) -> K4Plan:
+    """K4's launch for B clouds of M centres with S samples each through
+    the widths [C1, C2, .., CL].  Where the 64-row blocks are fewer than
+    one wave of the card, the last layer's 128-column passes are split
+    over more blocks, as many as still fit in one wave, each of which
+    computes layers 2..L-1 in full.  Raises ValueError on what the kernel
+    does not take."""
+    if not 1 <= len(widths) - 1 <= _K4_MAX_LAYERS:
+        raise ValueError(f'K4 takes 1..{_K4_MAX_LAYERS} layers after the '
+                         f'first, got {len(widths) - 1}')
+    if s < 4 or s % 4 or _K4_ROWS % s:
+        raise ValueError(f'K4 needs S a multiple of 4 dividing {_K4_ROWS}, '
+                         f'got S={s}')
+    if any(w % 4 for w in widths[1:]):
+        raise ValueError(f'K4 needs widths 2..L multiples of 4 (16-byte '
+                         f'weight copies), got {list(widths)}')
+    smem = _k4_smem_bytes(s, widths)
+    if smem > _K4_SMEM_LIMIT:
+        raise ValueError(f'K4 needs {smem} bytes of shared memory for '
+                         f'widths {list(widths)}, over {_K4_SMEM_LIMIT}')
+    centres = _K4_ROWS // s
+    passes = tuple(-(-w // _K4_PASS) for w in widths[1:])
+    blocks = -(-m // centres) * b
+    per_sm = max(1, min(_K4_BLOCKS_PER_SM, _K4_SM_SMEM // (smem + 1024)))
+    want = max(1, min(passes[-1], _K4_SMS * per_sm // blocks))
+    share = -(-passes[-1] // want)           # passes a block, then blocks
+    return K4Plan(_K4_ROWS, centres, (-(-m // centres), b,
+                                      -(-passes[-1] // share)), passes, smem)
+
+
+def check_weight_aligned(name: str, w: torch.Tensor) -> None:
+    """K4 copies weights in 16-byte pieces: raise unless `w` starts on 16
+    bytes."""
+    if w.data_ptr() % 16:
+        raise ValueError(f'{name}: K4 needs 16-byte aligned weights')
 
 
 def grouped_gather_mlp_max(feats1: torch.Tensor, idx: torch.Tensor,
@@ -93,21 +161,13 @@ def grouped_gather_mlp_max(feats1: torch.Tensor, idx: torch.Tensor,
     kernels.check_cuda('idx', idx, torch.int32, (b, m, s))
     kernels.check_cuda('cxw', cxw, torch.float32, (b, m, c1))
     kernels.check_cuda('b1', b1, torch.float32, (c1,))
-    if not 1 <= len(layers) <= _K4_MAX_LAYERS:
-        raise ValueError(f'K4 takes 1..{_K4_MAX_LAYERS} layers after the '
-                         f'first, got {len(layers)}')
-    if s < 4 or s % 4 or _K4_ROWS % s:
-        raise ValueError(f'K4 needs S a multiple of 4 dividing {_K4_ROWS}, '
-                         f'got S={s}')
     widths = [c1]
     for i, (w, bias) in enumerate(layers):
         kernels.check_cuda(f'W{i + 2}', w, torch.float32, (widths[-1], None))
         kernels.check_cuda(f'b{i + 2}', bias, torch.float32, (w.shape[1],))
+        check_weight_aligned(f'W{i + 2}', w)
         widths.append(w.shape[1])
-    smem = _k4_smem_bytes(s, widths)
-    if smem > _K4_SMEM_LIMIT:
-        raise ValueError(f'K4 needs {smem} bytes of shared memory for '
-                         f'widths {widths}, over {_K4_SMEM_LIMIT}')
+    plan = k4_launch_plan(b, m, s, widths)
     out = torch.empty((b, m, widths[-1]), dtype=torch.float32,
                       device=feats1.device)
     n_rest = len(layers)
@@ -118,8 +178,8 @@ def grouped_gather_mlp_max(feats1: torch.Tensor, idx: torch.Tensor,
     dims = (ctypes.c_int * (_K4_MAX_LAYERS + 1))(*widths)
     kernels.launch('grouped_gather_mlp_max', 'jmodt_grouped_gather_mlp_max',
                    feats1.data_ptr(), idx.data_ptr(), cxw.data_ptr(),
-                   b1.data_ptr(), b, n, m, s, n_rest, smem, w_ptrs, b_ptrs,
-                   dims, out.data_ptr())
+                   b1.data_ptr(), b, n, m, s, n_rest, plan.smem,
+                   plan.col_split, w_ptrs, b_ptrs, dims, out.data_ptr())
     return out
 
 

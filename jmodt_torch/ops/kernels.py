@@ -38,15 +38,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of every entry: (argtypes); restype is int (cudaError_t)
 _SIGNATURES = {
-    'jmodt_fps': (_P, _I, _I, _I, _P, _P),
+    'jmodt_fps': (_P, _I, _I, _I, _I, _I, _I, _P, _P),
+    'jmodt_fps_max_cluster': (ctypes.POINTER(_I),),
     'jmodt_fps_warp': (_P, _I, _I, _I, _P, _P),
     'jmodt_three_nn': (_P, _P, _I, _I, _I, _P, _P, _P),
     'jmodt_grouped_gather_mlp_max': (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _I, ctypes.POINTER(_P),
+                                     _I, _I, ctypes.POINTER(_P),
                                      ctypes.POINTER(_P), ctypes.POINTER(_I),
                                      _P, _P),
-    'jmodt_sa_level': (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                       ctypes.POINTER(_P), ctypes.POINTER(_P), _P,
+    'jmodt_sa_level': (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                       _P, ctypes.POINTER(_P), ctypes.POINTER(_P), _P, _P,
                        ctypes.POINTER(_P), ctypes.POINTER(_P),
                        ctypes.POINTER(_P), _P, _P, _P, _P),
     'jmodt_depth_to_space': (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
@@ -55,6 +56,7 @@ _SIGNATURES = {
 launches: collections.Counter = collections.Counter()
 
 _lib: list = []          # the loaded ctypes.CDLL, once built
+_max_cluster: list = []  # K1's largest placeable cluster, once queried
 
 
 def _nvcc() -> str:
@@ -130,6 +132,22 @@ def launch(counter: str, entry: str, *args) -> None:
         msg = lib.jmodt_error_string(err).decode()
         raise RuntimeError(f'{entry} failed: CUDA error {err} ({msg})')
     launches[counter] += 1
+
+
+def fps_max_cluster() -> int:
+    """The largest cluster of K1 blocks the card can place (16 on an
+    H100, else 8, 4, 2 or 1), from `cudaOccupancyMaxActiveClusters`, queried
+    once a process."""
+    if not _max_cluster:
+        lib = _library()
+        out = ctypes.c_int(0)
+        err = lib.jmodt_fps_max_cluster(ctypes.byref(out))
+        if err != 0:
+            msg = lib.jmodt_error_string(err).decode()
+            raise RuntimeError(f'jmodt_fps_max_cluster failed: CUDA error '
+                               f'{err} ({msg})')
+        _max_cluster.append(out.value)
+    return _max_cluster[0]
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -21,11 +21,13 @@ import numpy as np
 import torch
 
 from jmodt_torch.ops import kernels
-from jmodt_torch.ops.fused_sa import (Layers, _K4_SMEM_LIMIT, _k4_smem_bytes,
-                                      grouped_gather_mlp_max_plain)
+from jmodt_torch.ops.fused_sa import (Layers, check_weight_aligned,
+                                      grouped_gather_mlp_max_plain,
+                                      k4_launch_plan)
 from jmodt_torch.ops.grouping import ball_query_multi
 from jmodt_torch.ops.sampling import (FPS_MAX_POINTS,
-                                      farthest_point_sample_plain, gather_xyz)
+                                      farthest_point_sample_plain,
+                                      fps_launch_plan, gather_xyz)
 
 # limits of the CUDA entry (sa_level.cu): scales, layers per scale, and
 # the 64-row MLP tiles of grouped_mlp.cuh
@@ -63,8 +65,9 @@ def _k5_plan(xyz: torch.Tensor, feats: Optional[torch.Tensor], npoint: int,
              radii: Sequence[float], nsamples: Sequence[int],
              folded_per_scale: Sequence[Layers], check=kernels.check_cuda):
     """Check K5's arguments with `check` (per tensor) and return, per
-    scale, the widths [3 + C, C1, .., CL] and the MLP phase's shared
-    memory bytes; raise ValueError on what the CUDA entry does not take."""
+    scale, the widths [3 + C, C1, .., CL] and the MLP phase's launch plan
+    (`k4_launch_plan`); raise ValueError on what the CUDA entry does not
+    take."""
     b, n, _ = xyz.shape
     check('xyz', xyz, torch.float32, (b, n, 3))
     c = 0
@@ -81,7 +84,7 @@ def _k5_plan(xyz: torch.Tensor, feats: Optional[torch.Tensor], npoint: int,
         raise ValueError(f'npoint={npoint} must be in [1, N={n}]')
     if n > FPS_MAX_POINTS:
         raise ValueError(f'K5 FPS holds at most {FPS_MAX_POINTS} points in '
-                         f'shared memory, got N={n}')
+                         f'registers, got N={n}')
     plan = []
     for si, (ns, layers) in enumerate(zip(nsamples, folded_per_scale)):
         if ns < 4 or ns % 4 or _K5_ROWS % ns:
@@ -96,12 +99,10 @@ def _k5_plan(xyz: torch.Tensor, feats: Optional[torch.Tensor], npoint: int,
                   (widths[-1], None))
             check(f'scale {si} b{li + 1}', bias, torch.float32,
                   (w.shape[1],))
+            if li > 0:
+                check_weight_aligned(f'scale {si} W{li + 1}', w)
             widths.append(w.shape[1])
-        smem = _k4_smem_bytes(ns, widths[1:])
-        if smem > _K4_SMEM_LIMIT:
-            raise ValueError(f'K5 needs {smem} bytes of shared memory for '
-                             f'widths {widths}, over {_K4_SMEM_LIMIT}')
-        plan.append((widths, smem))
+        plan.append((widths, k4_launch_plan(b, npoint, ns, widths[1:])))
     return plan
 
 
@@ -122,11 +123,13 @@ def sa_level_fused(xyz: torch.Tensor, feats: Optional[torch.Tensor],
                                     folded_per_scale)
     plan = _k5_plan(xyz, feats, npoint, radii, nsamples, folded_per_scale)
     b, n, _ = xyz.shape
+    fps_plan = fps_launch_plan(n, kernels.fps_max_cluster())
     nscales = len(plan)
     dev = xyz.device
     dims = np.zeros((nscales, _K5_MAX_LAYERS + 1), np.int32)
     n_layers = np.array([len(w) - 1 for w, _ in plan], np.int32)
-    smem = np.array([sm for _, sm in plan], np.int32)
+    smem = np.array([k4.smem for _, k4 in plan], np.int32)
+    col_splits = np.array([k4.col_split for _, k4 in plan], np.int32)
     w_ptrs = (ctypes.c_void_p * (nscales * _K5_MAX_LAYERS))()
     b_ptrs = (ctypes.c_void_p * (nscales * _K5_MAX_LAYERS))()
     tables, cxws, nbrs = [], [], []
@@ -153,9 +156,10 @@ def sa_level_fused(xyz: torch.Tensor, feats: Optional[torch.Tensor],
     kernels.launch(
         'sa_level', 'jmodt_sa_level', xyz.data_ptr(),
         None if feats is None else feats.data_ptr(), b, n,
-        plan[0][0][0] - 3, npoint, nscales, radii2.ctypes.data,
+        plan[0][0][0] - 3, npoint, *fps_plan, nscales, radii2.ctypes.data,
         ns_arr.ctypes.data, n_layers.ctypes.data, dims.ctypes.data, w_ptrs,
-        b_ptrs, smem.ctypes.data, ptrs(*[t.data_ptr() for t in tables]),
+        b_ptrs, smem.ctypes.data, col_splits.ctypes.data,
+        ptrs(*[t.data_ptr() for t in tables]),
         ptrs(*[t.data_ptr() for t in cxws]),
         ptrs(*[t.data_ptr() for t in nbrs]), idx.data_ptr(),
         new_xyz.data_ptr(), pooled.data_ptr())

@@ -4,10 +4,10 @@
 On a CUDA tensor `farthest_point_sample` launches a hand-written kernel
 (`jmodt_torch/csrc/fps.cu`): K2, one warp a cloud (replaces
 `jmodt_tpu/ops/pallas/fps.py::farthest_point_sample_batched_pallas`), for
-B > 1 clouds of at most 1024 points (the RCNN's RoI clouds); K1, one block
-a cloud (replaces `farthest_point_sample_pallas`), for every other batch
-and size up to `FPS_MAX_POINTS` (the RPN's level 0 at any number of
-streams).  On a CPU tensor
+B > 1 clouds of at most 1024 points (the RCNN's RoI clouds); K1, one
+thread-block cluster a cloud (replaces `farthest_point_sample_pallas`), for
+every other batch and size up to `FPS_MAX_POINTS` (the RPN's level 0 at
+any number of streams), laid out by `fps_launch_plan`.  On a CPU tensor
 it runs `farthest_point_sample_plain`, the same arithmetic as a loop of
 tensor ops, which is also what the kernels are checked against on the card.
 
@@ -23,9 +23,16 @@ import torch
 
 from jmodt_torch.ops import kernels
 
-# K1 keeps the cloud's coordinates in shared memory: 12 bytes a point
-# within the 227 KB a block can use
-FPS_MAX_POINTS = 232448 // 12
+# K1 keeps each point in one thread's registers (fps.cuh): a block takes
+# up to 1024 points, with 128 threads while that is 8 points a thread or
+# fewer, and a cluster up to 16 blocks; past 16384 points a block grows to
+# 1024 threads of 8 points each
+FPS_THREADS = 128
+FPS_MAX_THREADS = 1024
+FPS_MAX_PPT = 8
+FPS_BLOCK_POINTS = FPS_THREADS * FPS_MAX_PPT
+FPS_MAX_CLUSTER = 16
+FPS_MAX_POINTS = FPS_MAX_CLUSTER * FPS_MAX_THREADS * FPS_MAX_PPT
 # K2 keeps each cloud in one warp's registers: at most 32 points a lane
 FPS_WARP_MAX_POINTS = 32 * 32
 
@@ -49,6 +56,31 @@ def farthest_point_sample_plain(xyz: torch.Tensor, npoint: int
     return idx
 
 
+def fps_launch_plan(n: int, max_cluster: int = FPS_MAX_CLUSTER):
+    """K1's launch for a cloud of n points: (blocks a cluster, threads a
+    block, points a thread).  The cluster takes one block per 1024 points up
+    to `max_cluster` (what the card can place); a block's share of the cloud
+    goes to 128 threads (fewer for a small cloud), more when that would be
+    over 8 points a thread, and a thread holds the power of two of points
+    that covers the rest.  Every block holds at least one point.  Fewer
+    threads a block make the block's barrier and argmax shorter, and a step
+    measured shortest on an H100 at 128."""
+    if n < 1:
+        raise ValueError(f'K1 needs a point, got N={n}')
+    blocks = min(-(-n // FPS_BLOCK_POINTS), max_cluster)
+    share = -(-n // blocks)
+    need = max(min(share, FPS_THREADS), -(-share // FPS_MAX_PPT))
+    threads = 32 * -(-need // 32)
+    if threads > FPS_MAX_THREADS:
+        raise ValueError(f'K1 holds at most {FPS_MAX_THREADS * FPS_MAX_PPT} '
+                         f'points a block in registers, got N={n} over '
+                         f'{max_cluster} blocks')
+    ppt = 1
+    while threads * ppt < share:
+        ppt *= 2
+    return -(-n // (threads * ppt)), threads, ppt
+
+
 def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """Iterative farthest point sampling, (B, N, 3) f32 -> (B, npoint)
     int32.  CPU tensors take the plain version; CUDA tensors the kernel."""
@@ -63,11 +95,9 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         kernels.launch('fps_batched', 'jmodt_fps_warp', xyz.data_ptr(), b,
                        n, npoint, out.data_ptr())
     else:
-        if n > FPS_MAX_POINTS:
-            raise ValueError(f'K1 FPS holds at most {FPS_MAX_POINTS} points '
-                             f'in shared memory, got N={n}')
+        csize, threads, ppt = fps_launch_plan(n, kernels.fps_max_cluster())
         kernels.launch('fps', 'jmodt_fps', xyz.data_ptr(), b, n, npoint,
-                       out.data_ptr())
+                       csize, threads, ppt, out.data_ptr())
     return out
 
 

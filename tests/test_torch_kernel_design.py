@@ -1,0 +1,301 @@
+"""The arithmetic of the redesigned K1 and K4 (jmodt_torch/csrc/fps.cuh,
+grouped_mlp.cuh), emulated on the CPU, and the wrappers' launch plans.
+
+The CUDA kernels run only on the card, where chip_smoke.py holds them
+against their plain versions.  Here their order of reduction and rounding
+is emulated with numpy and torch on the CPU:
+
+- K1: per-thread first maxima over a thread's consecutive points, the
+  lowest lane and then the lowest warp holding the maximum, then the
+  cluster's (value, index) reduction over the blocks.  It must give indices
+  exactly equal to `farthest_point_sample_plain` and to the JAX package's
+  Pallas kernel (interpret mode), on random clouds and on clouds with many
+  exact ties, across block boundaries too.
+- K4: layers 2..L as 3xTF32 tensor-core products (hi = x rounded to TF32 on
+  its bits, lo = x - hi, read by the tensor core truncated to TF32; a_lo
+  w_hi + a_hi w_lo + a_hi w_hi in float32).  At the main path's widths and
+  on folded weights of seeded modules it must stay within K4_TOL / 10 of
+  the output's scale of a float64 evaluation, while one TF32 pass misses
+  K4_TOL: the reason for the split.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from jmodt_tpu.ops.pallas.fps import farthest_point_sample_pallas
+from jmodt_torch import config as torch_config
+from jmodt_torch.models.point_rcnn import init_weights
+from jmodt_torch.models.pointnet2 import SAModuleMSG
+from jmodt_torch.ops import fused_sa, sampling
+
+# chip_smoke.py's tolerance for K4 and K5 against their plain versions
+K4_TOL = 1e-4
+
+
+# ------------------------------------------------------------- K1 (FPS)
+
+def emulate_k1(xyz: np.ndarray, npoint: int, plan) -> np.ndarray:
+    """K1 on one cloud (N, 3) float32 with plan (blocks, threads, points a
+    thread), in fps.cuh's order: returns (npoint,) int32."""
+    csize, threads, ppt = plan
+    n = xyz.shape[0]
+    total = csize * threads * ppt
+    assert total >= n > total - threads * ppt
+    pts = np.zeros((total, 3), np.float32)
+    pts[:n] = xyz
+    md = np.zeros(total, np.float32)
+    md[:n] = np.float32(1e10)          # points past N stay at 0
+    shape = (csize, threads // 32, 32, ppt)
+    first = np.arange(total).reshape(shape)[..., 0]
+    out = np.zeros(npoint, np.int32)
+    p = pts[0]
+    for t in range(1, npoint):
+        d = pts - p
+        dist = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+        md = np.minimum(md, dist)
+        v = md.reshape(shape)
+        k = v.argmax(-1)                                   # first maximum
+        tv = np.take_along_axis(v, k[..., None], -1)[..., 0]
+        ti = first + k
+        # warp, then block: the lowest lane holding the largest value bits
+        lane = tv.view(np.uint32).argmax(-1)[..., None]
+        wv = np.take_along_axis(tv, lane, -1)[..., 0]
+        wi = np.take_along_axis(ti, lane, -1)[..., 0]
+        warp = wv.view(np.uint32).argmax(-1)[..., None]
+        bv = np.take_along_axis(wv, warp, -1)[..., 0].view(np.uint32)
+        bi = np.take_along_axis(wi, warp, -1)[..., 0]
+        # cluster: the largest value, then the smallest index
+        out[t] = bi[bv == bv.max()].min()
+        p = pts[out[t]]
+    return out
+
+
+def _random_cloud(n):
+    rng = np.random.RandomState(n)
+    span = np.array([60.0, 4.0, 70.0], np.float32)
+    return rng.rand(n, 3).astype(np.float32) * span
+
+
+def _lattice_cloud():
+    """16 x 8 x 16 points on a 0.5 m grid: many exact ties of min-distance,
+    whose smallest index often lies in another block than the others."""
+    g = np.stack(np.meshgrid(np.arange(16), np.arange(8), np.arange(16),
+                             indexing='ij'), -1).reshape(-1, 3)
+    return (g * 0.5).astype(np.float32)
+
+
+def _duplicated_cloud():
+    """512 points four times over: every copy of a point ties with it, and
+    at 4+ blocks each copy lies in another block."""
+    base = np.random.RandomState(5).randn(512, 3).astype(np.float32) * 3
+    return np.concatenate([base] * 4)
+
+
+CLOUDS = {'random': _random_cloud(2048), 'lattice': _lattice_cloud(),
+          'duplicated': _duplicated_cloud()}
+
+
+@pytest.mark.parametrize('plan', [(4, 128, 4), (8, 128, 2), (8, 256, 1),
+                                  (4, 512, 1), (2, 128, 8)])
+@pytest.mark.parametrize('cloud', sorted(CLOUDS))
+def test_k1_reduction_matches_plain_and_pallas(cloud, plan):
+    xyz = CLOUDS[cloud]
+    npoint = 512
+    got = emulate_k1(xyz, npoint, plan)
+    plain = sampling.farthest_point_sample_plain(
+        torch.from_numpy(xyz)[None], npoint).numpy()[0]
+    np.testing.assert_array_equal(got, plain)
+    pallas = np.asarray(farthest_point_sample_pallas(
+        xyz[None], npoint, interpret=True))[0]
+    np.testing.assert_array_equal(got, pallas)
+
+
+def test_k1_ties_cross_block_boundaries():
+    """The duplicated cloud's ties are between blocks: the winner is always
+    the first copy, in block 0 of 4."""
+    got = emulate_k1(CLOUDS['duplicated'], 300, (4, 128, 4))
+    assert (got < 512).all()
+    assert len(set(got.tolist())) == 300
+
+
+# ---------------------------------------------------- K4 (3xTF32 split)
+
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 on its bits: add half of the dropped 13 bits'
+    range, then mask them (to nearest, ties away from zero)."""
+    u = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + 0x1000) & 0xFFFFE000
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(
+        torch.int32).view(torch.float32)
+
+
+def _trunc_tf32(x: torch.Tensor) -> torch.Tensor:
+    """The TF32 bits the tensor core reads from a float32: the low 13
+    mantissa bits dropped."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _rna_tf32(x)
+    return hi, _trunc_tf32(x - hi)
+
+
+def mm_3xtf32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """grouped_mlp.cuh's product: (a_lo w_hi + a_hi w_lo) + a_hi w_hi, each
+    TF32 product exact in float32, sums in float32."""
+    (ah, al), (wh, wl) = _split(a), _split(w)
+    return (al @ wh + ah @ wl) + ah @ wh
+
+
+def mm_tf32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One TF32 pass, both operands rounded to nearest."""
+    return _rna_tf32(a) @ _rna_tf32(w)
+
+
+def _mlp_max(h, layers, s, mm):
+    for w, b in layers:
+        h = torch.relu(mm(h, w) + b)
+    return h.view(-1, s, h.shape[-1]).amax(1)
+
+
+def _sa_cases():
+    """(name, folded layers, S) of every K4 MLP on the main path: RCNN sa_0
+    and sa_1 and each scale of RPN levels 1-3 (K5's MLP phase), from
+    SAModuleMSG modules built at the default config's widths and seeded."""
+    cfg = torch_config.Config()
+    rpn, rcnn = cfg.RPN.SA_CONFIG, cfg.RCNN.SA_CONFIG
+    cases = []
+    cin = 0
+    for k in range(4):
+        if k > 0:
+            sa = SAModuleMSG(rpn.NPOINTS[k], rpn.RADIUS[k], rpn.NSAMPLE[k],
+                             rpn.MLPS[k], cin=cin)
+            init_weights(sa, k)
+            for i, (mlp, s) in enumerate(zip(sa._mlps(), rpn.NSAMPLE[k])):
+                cases.append((f'rpn_l{k}_scale{i}',
+                              fused_sa.fold_pointwise_mlp(mlp), s))
+        cin = sum(m[-1] for m in rpn.MLPS[k])
+    cin = cfg.RCNN.XYZ_UP_LAYER[-1]
+    for k in range(2):
+        sa = SAModuleMSG(rcnn.NPOINTS[k], (rcnn.RADIUS[k],),
+                         (rcnn.NSAMPLE[k],), (rcnn.MLPS[k],), cin=cin)
+        init_weights(sa, 10 + k)
+        cases.append((f'rcnn_sa{k}', fused_sa.fold_pointwise_mlp(sa.mlp_0),
+                      rcnn.NSAMPLE[k]))
+        cin = rcnn.MLPS[k][-1]
+    return cases
+
+
+with torch.no_grad():
+    SA_CASES = _sa_cases()
+
+
+@pytest.mark.parametrize('name,layers,s', SA_CASES,
+                         ids=[c[0] for c in SA_CASES])
+def test_k4_split_keeps_float32_accuracy(name, layers, s):
+    (w1, b1), rest = layers[0], layers[1:]
+    rng = np.random.RandomState(len(name))
+    centres = 32
+    catf = torch.from_numpy(rng.randn(centres * s, w1.shape[0]).astype(
+        np.float32))
+    h1 = torch.relu(catf @ w1 + b1)       # K4's layer-1 input, float32
+    want = _mlp_max(h1.double(), [(w.double(), b.double()) for w, b in rest],
+                    s, torch.matmul)
+    scale = max(1.0, float(want.abs().max()))
+    split = float((_mlp_max(h1, rest, s, mm_3xtf32) - want).abs().max())
+    single = float((_mlp_max(h1, rest, s, mm_tf32) - want).abs().max())
+    assert split / scale < K4_TOL / 10, (name, split / scale)
+    assert single / scale > K4_TOL, (name, single / scale)
+
+
+def test_tf32_rounding_on_the_bits():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
+                      -(1.0 + 2 ** -11)], dtype=torch.float32)
+    hi = _rna_tf32(x)
+    assert hi[0] == 1.0 and hi[1] == 1.0 + 2 ** -10   # a tie: away from 0
+    assert hi[2] == 1.0 + 2 ** -9 and hi[3] == -(1.0 + 2 ** -10)
+    hi, lo = _split(x)
+    assert torch.equal(hi + lo, x)      # these inputs split exactly
+    y = torch.from_numpy(np.random.RandomState(0).randn(1000).astype(
+        np.float32))
+    hi, lo = _split(y)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((lo.view(torch.int32) & 0x1FFF) == 0).all()
+    assert float(((hi.double() + lo.double() - y.double()).abs()
+                  / y.double().abs()).max()) < 2 ** -20
+
+
+# ---------------------------------------------------------- launch plans
+
+MAIN_PATH_FPS = [          # (N, K1's plan on an H100, which placed 16)
+    (16384, (16, 128, 8)),   # RPN level 0, any number of streams
+    (4096, (4, 128, 8)),     # level 1 on the detection step; K5 L1's FPS
+    (1024, (1, 128, 8)),     # level 2
+    (256, (1, 128, 2)),      # level 3
+]
+
+
+@pytest.mark.parametrize('n,plan', MAIN_PATH_FPS)
+def test_fps_launch_plan_main_path(n, plan):
+    assert sampling.fps_launch_plan(n) == plan
+    blocks, threads, ppt = plan
+    chunk = threads * ppt
+    assert threads % 32 == 0 and ppt in (1, 2, 4, 8)
+    assert blocks * chunk >= n > (blocks - 1) * chunk   # no empty block
+
+
+@pytest.mark.parametrize('max_cluster,plan', [(8, (8, 256, 8)),
+                                              (4, (4, 512, 8)),
+                                              (2, (2, 1024, 8))])
+def test_fps_launch_plan_smaller_cluster(max_cluster, plan):
+    """A card that places fewer than 16 blocks a cluster gets wider blocks
+    at level 0."""
+    assert sampling.fps_launch_plan(16384, max_cluster) == plan
+
+
+def test_fps_launch_plan_limits():
+    assert sampling.fps_launch_plan(sampling.FPS_MAX_POINTS) == (16, 1024, 8)
+    with pytest.raises(ValueError, match='at most'):
+        sampling.fps_launch_plan(sampling.FPS_MAX_POINTS + 1)
+    with pytest.raises(ValueError, match='at most'):
+        sampling.fps_launch_plan(16384, 1)
+    assert sampling.fps_launch_plan(5) == (1, 32, 1)
+
+
+MAIN_PATH_K4 = [   # (what, B, M, S, widths, grid with column split, passes)
+    ('rcnn_sa0', 100, 128, 64, [128, 128, 128], (128, 100, 1), (1, 1)),
+    ('rcnn_sa1', 100, 32, 64, [128, 128, 256], (32, 100, 1), (1, 2)),
+    ('rcnn_sa0_s4', 400, 128, 64, [128, 128, 128], (128, 400, 1), (1, 1)),
+    ('rpn_l1_0', 1, 1024, 16, [64, 64, 128], (256, 1, 1), (1, 1)),
+    ('rpn_l1_1', 1, 1024, 32, [64, 96, 128], (512, 1, 1), (1, 1)),
+    ('rpn_l2_0', 1, 256, 16, [128, 196, 256], (64, 1, 2), (2, 2)),
+    ('rpn_l2_1', 1, 256, 32, [128, 196, 256], (128, 1, 1), (2, 2)),
+    ('rpn_l3_0', 1, 64, 16, [256, 256, 512], (16, 1, 4), (2, 4)),
+    ('rpn_l3_1', 1, 64, 32, [256, 384, 512], (32, 1, 4), (3, 4)),
+]
+
+
+@pytest.mark.parametrize('what,b,m,s,widths,grid,passes', MAIN_PATH_K4,
+                         ids=[c[0] for c in MAIN_PATH_K4])
+def test_k4_launch_plan_main_path(what, b, m, s, widths, grid, passes):
+    plan = fused_sa.k4_launch_plan(b, m, s, widths)
+    assert plan.rows == 64 and plan.centres == 64 // s
+    assert plan.grid == grid and plan.passes == passes
+    assert plan.col_split == grid[2]
+    # the split never leaves a block without a column pass of its own
+    share = -(-passes[-1] // plan.col_split)
+    assert (plan.col_split - 1) * share < passes[-1]
+    assert plan.smem <= 232448
+    assert plan.smem == fused_sa._k4_smem_bytes(s, widths)
+
+
+@pytest.mark.parametrize('s,widths,match', [
+    (64, [128, 130], 'multiples of 4'),
+    (12, [16, 16], 'S a multiple of 4 dividing'),
+    (16, [16], 'layers'),
+    (4, [1024, 1024, 1024], 'shared memory'),
+])
+def test_k4_launch_plan_refuses(s, widths, match):
+    with pytest.raises(ValueError, match=match):
+        fused_sa.k4_launch_plan(1, 64, s, widths)
