@@ -13,7 +13,9 @@ Phases, in order; any failure exits non-zero:
             indices equal, 3-NN distances within 1e-5 relative, K4 within
             1e-4 of the output's scale, K6 equal bit for bit.  K1's
             cluster plan (blocks x threads x points a thread) and us a step
-            are printed per call.  Times are
+            are printed per call, and K3's plan (lanes a query, queries a
+            thread, threads a block) with its time, bound, plain time and
+            cdist + topk time at each FP level.  Times are
             device time from CUDA events, streaming from HBM (cuda_ms); a
             '*' and the kernel line's "host_clocked" mark a time the host's
             launches may have set.  K6 is also timed against
@@ -32,7 +34,10 @@ Phases, in order; any failure exits non-zero:
             of the whole-SA-level kernel (K5) at RPN levels 1-3; each call
             is held against its plain version (indices and centres equal,
             pooled features within 1e-4 of their scale) and timed beside
-            the default path's K1 + ball query + K4 for the same level.
+            the default path's K1 + ball query + K4 for the same level and
+            beside its FPS floor: K1 alone on the same cloud with K5's FPS
+            plan (equal indices), so K5 - floor reads off what runs
+            outside the FPS.
 6. joint    the joint detect + track step (the main path: Config() with
             RPN.MEGA_SA, bfloat16, detector weights from seed 0, a link
             head from seed 1, 64 track slots, top 16 detections, score
@@ -65,7 +70,8 @@ Phases, in order; any failure exits non-zero:
 
 Prints a {"kernels": [...]} line (launches from phase 6; per path from
 phases 3, 6 and 8; per-call times and bounds; K1's largest placeable
-cluster, its cluster size at each N and us a step at level 0; K4's and K5's
+cluster, its cluster size at each N and us a step at level 0; K3's plan and
+library time per FP level; K5's FPS floor per level; K4's and K5's
 tensor-core route, with bounds at the TF32 peak for the three products of
 each multiply-add and, for reference, as float32 FMAs), the card's name
 and power limit, and as its last line {"ok": true, "device": {...}}.  Needs
@@ -340,7 +346,11 @@ def check_kernels(recorded, per_frame, timed=True):
                 flops = 8.0 * b * n * m
                 nbytes = 12.0 * b * (n + m) + 24.0 * b * n
                 shape = f'B={b} {n}x{m}'
-                call = dict(b=b, n=n, m=m)
+                plan = interpolate.three_nn_launch_plan(b, n, m)
+                call = dict(b=b, n=n, m=m, lanes=plan.lanes,
+                            queries=plan.queries, threads=plan.threads)
+                extra = (f' {plan.lanes} lanes a query, {plan.queries} '
+                         f'queries a thread, {plan.threads} threads')
             elif name == 'depth_to_space':
                 taps, k, r, h0, w0, bias = args
                 b = taps.shape[0]
@@ -416,6 +426,9 @@ def check_kernels(recorded, per_frame, timed=True):
             tot['t_bytes'] += nbytes / PEAK_BYTES
             tot['t_f32'] += flops / PEAK_F32_FLOPS
             call.update(ms=times['ms'][0], bound_ms=bms)
+            if name == 'three_nn':
+                call.update(plain_ms=times['plain_ms'][0],
+                            library_ms=times['library_ms'][0])
             if name == 'fps':
                 call['us_per_step'] = times['ms'][0] * 1e3 / (npoint - 1)
                 extra += f', {call["us_per_step"]:.3f} us a step'
@@ -578,12 +591,29 @@ def default_level(xyz, feats, npoint, radii, nsamples, folded):
                       for nbr, lay in zip(nbrs, folded)], dim=-1)
 
 
+def k5_fps_floor(xyz, npoint, nsamples, folded):
+    """K1 alone on the cloud with the FPS plan K5 runs (K5's floor: its
+    table, query and MLP run behind this FPS).  Launched directly, since
+    the FPS wrapper gives B > 1 clouds of at most 1024 points to K2."""
+    from jmodt_torch.ops import kernels, sa_level
+    b, n, _ = xyz.shape
+    widths = [[layers[0][0].shape[0]] + [w.shape[1] for w, _ in layers]
+              for layers in folded]
+    plan = sa_level.k5_launch_plan(
+        b, n, npoint, nsamples, widths, kernels.fps_max_cluster(),
+        torch.cuda.get_device_properties(xyz.device).multi_processor_count)
+    out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
+    kernels.launch('fps', 'jmodt_fps', xyz.data_ptr(), b, n, npoint,
+                   *plan.fps, out.data_ptr())
+    return out
+
+
 def check_k5(calls, timed=True):
     """K5 vs its plain version at each recorded level and, when `timed`,
-    its times beside the default path's; returns the aggregate over the
-    frame's calls."""
+    its times beside the default path's and beside its FPS floor; returns
+    the aggregate over the frame's calls."""
     from jmodt_torch.ops import sa_level
-    tot = tally('ms', 'plain_ms', 'default_ms')
+    tot = tally('ms', 'plain_ms', 'default_ms', 'fps_floor_ms')
     tot['library_ms'] = None
     for level, args in enumerate(calls, start=1):
         xyz, feats, npoint, radii, nsamples, folded = args
@@ -602,21 +632,30 @@ def check_k5(calls, timed=True):
             print(f'  sa_level L{level} {shape}  equal to plain, max_abs_err '
                   f'{err:.3g}', flush=True)
             continue
+        floor_args = (xyz, npoint, nsamples, folded)
+        check(torch.equal(k5_fps_floor(*floor_args), got[2]),
+              f'K5 L{level}: K1 with K5\'s FPS plan gives other indices')
         times = {'ms': cuda_ms(sa_level.sa_level_fused, args, 10),
                  'plain_ms': cuda_ms(sa_level.sa_level_fused_plain, args, 2),
-                 'default_ms': cuda_ms(default_level, args, 5)}
+                 'default_ms': cuda_ms(default_level, args, 5),
+                 'fps_floor_ms': cuda_ms(k5_fps_floor, floor_args, 10)}
         add_times(tot, times)
         t_ops, nbytes, t_f32 = k5_work(args, want[0])
         bms, by = bound_ms(t_ops, nbytes)
         tot['t_ops'] += t_ops
         tot['t_bytes'] += nbytes / PEAK_BYTES
         tot['t_f32'] += t_f32
+        floor = times['fps_floor_ms'][0]
         tot['per_call'].append(dict(level=level, n=xyz.shape[1], m=npoint,
-                                    ms=times['ms'][0], bound_ms=bms))
+                                    ms=times['ms'][0], bound_ms=bms,
+                                    fps_floor_ms=floor,
+                                    over_floor_ms=times['ms'][0] - floor))
         print(f'  sa_level L{level} {shape}  kernel {show(times["ms"])}  '
               f'plain {show(times["plain_ms"])}  default path (K1+ball '
-              f'query+K4) {show(times["default_ms"])}  bound {bms:.4f} ms '
-              f'({by})  max_abs_err {err:.3g}', flush=True)
+              f'query+K4) {show(times["default_ms"])}  FPS floor (K1, K5\'s '
+              f'plan) {show(times["fps_floor_ms"])}, K5 - floor '
+              f'{times["ms"][0] - floor:.4f} ms  bound {bms:.4f} ms ({by})  '
+              f'max_abs_err {err:.3g}', flush=True)
     return tot
 
 
@@ -920,6 +959,7 @@ def main() -> int:
             row['per_call'] = a['per_call']
         if 'default_ms' in a:
             row['default_path_ms'] = a['default_ms']
+            row['fps_floor_ms'] = a['fps_floor_ms']
         if 'deconv_ms' in a:
             row['deconv_ms'] = a['deconv_ms']
             row['deconv_library_ms'] = a['deconv_library_ms']

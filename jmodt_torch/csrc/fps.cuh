@@ -42,6 +42,14 @@
 // reduces the block's slots itself.  Points past N (the last block's tail)
 // hold min-distance 0 at an index above every real point, so they never
 // win.
+//
+// For K5 the kernel also streams its centres: each index is stored as a
+// strong (relaxed, GPU-scope) store, which another SM's strong load sees
+// without a fence, and every thread issues griddepcontrol.launch_dependents
+// once its points are loaded, so a grid launched after it with
+// programmatic stream serialization starts while it runs and can poll
+// idx, filled with -1 beforehand, centre by centre (sa_level.cu).  For K1
+// the instruction is a no-op.
 #pragma once
 
 // Internal linkage (an anonymous namespace): every source that includes
@@ -114,6 +122,12 @@ __device__ __forceinline__ void wait_phase(unsigned long long* bar,
         : "memory");
 }
 
+// The centre `v` into o[t], visible to strong loads of other SMs
+__device__ __forceinline__ void emit_centre(int* o, int t, int v) {
+  asm volatile("st.relaxed.gpu.global.s32 [%0], %1;" ::"l"(o + t), "r"(v)
+               : "memory");
+}
+
 // Lane holding the largest v of the warp, ties to the lowest lane; every v
 // is >= 0, so its bits order as unsigned ints.
 __device__ __forceinline__ int warp_max_lane(float v) {
@@ -158,7 +172,8 @@ __global__ void __launch_bounds__(kFpsThreads)
     md[k] = ok ? 1e10f : 0.0f;  // fminf keeps a missing point at 0
   }
   float px = p[0], py = p[1], pz = p[2];
-  if (rank == 0 && tid == 0) o[0] = 0;
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  if (rank == 0 && tid == 0) emit_centre(o, 0, 0);
   if (csize > 1) {
     if (tid == 0) {  // one arrival a phase: warp 0's expect_bytes
       for (int k = 0; k < 2; ++k)
@@ -205,7 +220,7 @@ __global__ void __launch_bounds__(kFpsThreads)
         px = c.y;
         py = c.z;
         pz = c.w;
-        if (tid == 0) o[t] = ci;
+        if (tid == 0) emit_centre(o, t, ci);
         continue;
       }
       if (lane == 0) expect_bytes(&bar[par], 20 * csize);
@@ -231,7 +246,8 @@ __global__ void __launch_bounds__(kFpsThreads)
     px = __shfl_sync(0xffffffffu, c.y, src);
     py = __shfl_sync(0xffffffffu, c.z, src);
     pz = __shfl_sync(0xffffffffu, c.w, src);
-    if (rank == 0 && tid == 0) o[t] = static_cast<int>(win);
+    if (rank == 0 && tid == 0)
+      emit_centre(o, t, static_cast<int>(win));
   }
   // no block leaves while a peer may still write into its shared memory
   if (csize > 1) cluster.sync();

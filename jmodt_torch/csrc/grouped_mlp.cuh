@@ -39,7 +39,11 @@
 // one wave, the grid's z dimension splits the last layer's column passes
 // over blocks that each recompute the layers before (the wrapper's plan).
 // Widths 2..L must be multiples of 4 and the weights 16-byte aligned
-// (16-byte cp.async).
+// (16-byte cp.async).  The block's work is `grouped_mlp_block`, a device
+// function of the block's coordinates, so K5 runs the same code for the
+// MLP units of its one consumer grid; there the table, the neighbour lists
+// and cxw are written while the grid runs and are read through L2
+// (ld.global.cg), not through the read-only path K4 uses.
 #pragma once
 
 // Internal linkage (an anonymous namespace): every source that includes
@@ -124,16 +128,18 @@ __device__ __forceinline__ void load_weight_tile(float* dst,
 
 // The columns of layer l a block computes: all of them, but of the last
 // layer only its share of the 128-column passes when the grid splits them
-// over gridDim.z blocks (each of which computes layers 2..L-1 in full).
+// over nz blocks (each of which computes layers 2..L-1 in full).
 struct Columns {
   int last, begin_last, end_last;
 
-  __device__ __forceinline__ Columns(const Layers& L, int n_rest) {
+  // block zi of the nz that share the last layer
+  __device__ __forceinline__ Columns(const Layers& L, int n_rest, int zi,
+                                     int nz) {
     last = n_rest - 1;
     const int cout = L.dim[n_rest];
     const int passes = (cout + kPassN - 1) / kPassN;
-    const int share = (passes + gridDim.z - 1) / gridDim.z;
-    begin_last = blockIdx.z * share * kPassN;
+    const int share = (passes + nz - 1) / nz;
+    begin_last = zi * share * kPassN;
     end_last = min(cout, begin_last + share * kPassN);
   }
   __device__ __forceinline__ int begin(int l) const {
@@ -175,14 +181,22 @@ struct WeightCursor {
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-    grouped_gather_mlp_max_kernel(const float* __restrict__ feats1,
-                                  const int* __restrict__ idx,
-                                  const float* __restrict__ cxw,
-                                  const float* __restrict__ b1, int n, int m,
-                                  int s, int n_rest, Layers L,
-                                  float* __restrict__ out, int out_stride) {
-  extern __shared__ __align__(16) float smem[];
+// A load of data the grid itself may have written (kCoherent: through L2)
+// or of data that is read-only while it runs.
+template <bool kCoherent, typename T>
+__device__ __forceinline__ T load_in(const T* p) {
+  return kCoherent ? __ldcg(p) : __ldg(p);
+}
+
+// The rows of centres [mblk * tm, (mblk + 1) * tm) of cloud b, tm = 64 / s,
+// through every layer, for the last layer's columns of block zi of nz;
+// smem as the kernel's dynamic shared memory.
+template <bool kCoherent>
+__device__ __forceinline__ void grouped_mlp_block(
+    float* smem, const float* feats1, const int* idx, const float* cxw,
+    const float* __restrict__ b1, int n, int m, int s, int n_rest,
+    const Layers& L, float* __restrict__ out, int out_stride, int mblk,
+    int b, int zi, int nz) {
   int even = 0, odd = 0;  // widest padded layer input at even / odd depth
   for (int l = 0; l < n_rest; ++l) {
     if (l % 2 == 0) even = max(even, pad8(L.dim[l]));
@@ -195,13 +209,12 @@ __global__ void __launch_bounds__(kThreads)
 
   const int c1 = L.dim[0], c1p = pad8(c1);
   const int tm = kRows / s;  // centres per block
-  const int b = blockIdx.y;
-  const int m0 = blockIdx.x * tm;
+  const int m0 = mblk * tm;
   const int tid = threadIdx.x;
 
   // the first kStages - 1 weight tiles are in flight while layer 1 is
   // gathered
-  const Columns cols(L, n_rest);
+  const Columns cols(L, n_rest, zi, nz);
   WeightCursor next(cols);
   for (int i = 0; i < kStages - 1; ++i)
     next.load(ring, L, cols, n_rest, tid);
@@ -215,15 +228,16 @@ __global__ void __launch_bounds__(kThreads)
       const int mm = m0 + r / s;
       const bool live = mm < m;
       const size_t centre = static_cast<size_t>(b) * m + (live ? mm : 0);
-      const float* __restrict__ src =
-          feats1 +
-          (static_cast<size_t>(b) * n + (live ? idx[centre * s + r % s] : 0)) *
-              c1;
-      const float* __restrict__ cx = cxw + centre * c1;
+      const int row =
+          live ? load_in<kCoherent>(idx + centre * s + r % s) : 0;
+      const float* src = feats1 + (static_cast<size_t>(b) * n + row) * c1;
+      const float* cx = cxw + centre * c1;
       for (int c = cl; c < c1p; c += 8) {
         float v = 0.0f;
         if (live && c < c1)
-          v = fmaxf(__fsub_rn(__fadd_rn(src[c], b1[c]), cx[c]), 0.0f);
+          v = fmaxf(__fsub_rn(__fadd_rn(load_in<kCoherent>(src + c), b1[c]),
+                              load_in<kCoherent>(cx + c)),
+                    0.0f);
         buf_a[c * kRS + r] = v;
       }
     }
@@ -360,6 +374,20 @@ __global__ void __launch_bounds__(kThreads)
     hin = hout;
     hout = done;
   }
+}
+
+// K4: one block per (64-row tile, cloud, column share)
+__global__ void __launch_bounds__(kThreads)
+    grouped_gather_mlp_max_kernel(const float* __restrict__ feats1,
+                                  const int* __restrict__ idx,
+                                  const float* __restrict__ cxw,
+                                  const float* __restrict__ b1, int n, int m,
+                                  int s, int n_rest, Layers L,
+                                  float* __restrict__ out, int out_stride) {
+  extern __shared__ __align__(16) float smem[];
+  grouped_mlp_block<false>(smem, feats1, idx, cxw, b1, n, m, s, n_rest, L,
+                           out, out_stride, blockIdx.x, blockIdx.y,
+                           blockIdx.z, gridDim.z);
 }
 
 }  // namespace

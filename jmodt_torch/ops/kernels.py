@@ -41,15 +41,15 @@ _SIGNATURES = {
     'jmodt_fps': (_P, _I, _I, _I, _I, _I, _I, _P, _P),
     'jmodt_fps_max_cluster': (ctypes.POINTER(_I),),
     'jmodt_fps_warp': (_P, _I, _I, _I, _P, _P),
-    'jmodt_three_nn': (_P, _P, _I, _I, _I, _P, _P, _P),
+    'jmodt_three_nn': (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     'jmodt_grouped_gather_mlp_max': (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _I, ctypes.POINTER(_P),
                                      ctypes.POINTER(_P), ctypes.POINTER(_I),
                                      _P, _P),
-    'jmodt_sa_level': (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                       _P, ctypes.POINTER(_P), ctypes.POINTER(_P), _P, _P,
-                       ctypes.POINTER(_P), ctypes.POINTER(_P),
-                       ctypes.POINTER(_P), _P, _P, _P, _P),
+    'jmodt_sa_level': (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                       _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
+                       _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
+                       ctypes.POINTER(_P), _P, _P, _P, _P, _P),
     'jmodt_depth_to_space': (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 

@@ -1,5 +1,6 @@
-"""The arithmetic of the redesigned K1 and K4 (jmodt_torch/csrc/fps.cuh,
-grouped_mlp.cuh), emulated on the CPU, and the wrappers' launch plans.
+"""The arithmetic of the redesigned K1, K3 and K4 (jmodt_torch/csrc/fps.cuh,
+three_nn.cu, grouped_mlp.cuh), emulated on the CPU, and the wrappers'
+launch plans, K5's among them.
 
 The CUDA kernels run only on the card, where chip_smoke.py holds them
 against their plain versions.  Here their order of reduction and rounding
@@ -17,6 +18,15 @@ is emulated with numpy and torch on the CPU:
   on folded weights of seeded modules it must stay within K4_TOL / 10 of
   the output's scale of a float64 evaluation, while one TF32 pass misses
   K4_TOL: the reason for the split.
+- K3: each query's known set split over L lanes (lane j takes the points
+  k with k % L == j), a strict `<` top-3 insertion per lane in index
+  order, then a butterfly merge of the lanes' sorted triples by (distance,
+  index).  It must give indices and distances exactly equal to
+  `three_nn_plain` and to the JAX package's Pallas kernel (interpret
+  mode), on clouds whose equal distances fall in different slices.
+- K5: the plan of its FPS and consumer grids, and the order of the
+  consumer grid's work tickets, in which every wait is on the FPS or on an
+  earlier ticket (sa_level.cu).
 """
 
 import numpy as np
@@ -24,10 +34,11 @@ import pytest
 import torch
 
 from jmodt_tpu.ops.pallas.fps import farthest_point_sample_pallas
+from jmodt_tpu.ops.pallas.three_nn import three_nn_pallas
 from jmodt_torch import config as torch_config
 from jmodt_torch.models.point_rcnn import init_weights
 from jmodt_torch.models.pointnet2 import SAModuleMSG
-from jmodt_torch.ops import fused_sa, sampling
+from jmodt_torch.ops import fused_sa, interpolate, sa_level, sampling
 
 # chip_smoke.py's tolerance for K4 and K5 against their plain versions
 K4_TOL = 1e-4
@@ -299,3 +310,276 @@ def test_k4_launch_plan_main_path(what, b, m, s, widths, grid, passes):
 def test_k4_launch_plan_refuses(s, widths, match):
     with pytest.raises(ValueError, match=match):
         fused_sa.k4_launch_plan(1, 64, s, widths)
+
+
+# ------------------------------------------------------- K3 (three-NN)
+
+def _insert(d, i, dn, jn):
+    """One strict `<` insertion of candidates (dn, jn) into sorted triples
+    d, i (..., 3), where the candidate's index is above all held ones."""
+    d, i = d.copy(), i.copy()
+    c3, c2, c1 = dn < d[..., 2], dn < d[..., 1], dn < d[..., 0]
+    d[..., 2] = np.where(c2, d[..., 1], np.where(c3, dn, d[..., 2]))
+    i[..., 2] = np.where(c2, i[..., 1], np.where(c3, jn, i[..., 2]))
+    d[..., 1] = np.where(c1, d[..., 0], np.where(c2, dn, d[..., 1]))
+    i[..., 1] = np.where(c1, i[..., 0], np.where(c2, jn, i[..., 1]))
+    d[..., 0] = np.where(c1, dn, d[..., 0])
+    i[..., 0] = np.where(c1, jn, i[..., 0])
+    return d, i
+
+
+def _merge(xd, xi, yd, yi):
+    """three_nn.cu's merge of two sorted triples: the three smallest by
+    (distance, index), popped from the heads in turn."""
+    out_d, out_i = np.empty_like(xd), np.empty_like(xi)
+    pos_x = np.zeros(xd.shape[:-1], np.int64)
+    pos_y = np.zeros(xd.shape[:-1], np.int64)
+    for r in range(3):
+        hx = np.take_along_axis(xd, pos_x[..., None], -1)[..., 0]
+        hxi = np.take_along_axis(xi, pos_x[..., None], -1)[..., 0]
+        hy = np.take_along_axis(yd, pos_y[..., None], -1)[..., 0]
+        hyi = np.take_along_axis(yi, pos_y[..., None], -1)[..., 0]
+        take_y = (hy < hx) | ((hy == hx) & (hyi < hxi))
+        out_d[..., r] = np.where(take_y, hy, hx)
+        out_i[..., r] = np.where(take_y, hyi, hxi)
+        pos_y = pos_y + take_y
+        pos_x = pos_x + ~take_y
+    return out_d, out_i
+
+
+def emulate_k3(unknown: np.ndarray, known: np.ndarray, lanes: int):
+    """K3 on one cloud, (N, 3) queries and (M, 3) known float32, with
+    `lanes` lanes a query, in three_nn.cu's order.  Returns the squared
+    distances (N, 3) before the kernel's square root, and idx (N, 3)
+    int32."""
+    n, m = unknown.shape[0], known.shape[0]
+    d = np.full((n, lanes, 3), np.inf, np.float32)
+    i = np.full((n, lanes, 3), np.iinfo(np.int32).max, np.int64)
+    for base in range(0, m, lanes):        # lane j's next point: base + j
+        k = base + np.arange(lanes)
+        live = k < m
+        p = known[np.minimum(k, m - 1)]
+        diff = p[None] - unknown[:, None]
+        dn = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]) \
+            + diff[..., 2] * diff[..., 2]
+        dn = np.where(live[None], dn, np.float32(np.inf))  # inf: no insert
+        d, i = _insert(d, i, dn, np.broadcast_to(k, dn.shape))
+    off = 1
+    while off < lanes:                     # XOR butterfly over the lanes
+        partner = np.arange(lanes) ^ off
+        d, i = _merge(d, i, d[:, partner], i[:, partner])
+        off *= 2
+    assert (d == d[:, :1]).all() and (i == i[:, :1]).all()
+    return d[:, 0], i[:, 0].astype(np.int32)
+
+
+def _k3_clouds():
+    """(queries, known) pairs whose equal distances lie in different lane
+    slices: a lattice queried at the centres of its cells (8 known points
+    at one distance, 1 apart in index within a row), and 251 known points
+    four times over (copies 251 apart: another slice for every L > 1)."""
+    g = np.stack(np.meshgrid(np.arange(16), np.arange(8), np.arange(8),
+                             indexing='ij'), -1).reshape(-1, 3)
+    lattice = (g * 0.5).astype(np.float32)
+    rng = np.random.RandomState(7)
+    cells = lattice[rng.choice(len(lattice), 256, replace=False)] + 0.25
+    base = rng.randn(251, 3).astype(np.float32) * 2
+    dup = np.concatenate([base] * 4)
+    near = base[rng.randint(0, 251, 256)] + rng.randn(256, 3).astype(
+        np.float32) * 0.3
+    near[:16] = base[:16]                  # queries on known points: 0 ties
+    rand_u = rng.rand(256, 3).astype(np.float32) * 20
+    rand_k = rng.rand(1500, 3).astype(np.float32) * 20    # 2 tiles
+    return {'lattice': (cells.astype(np.float32), lattice),
+            'duplicated': (near, dup), 'random': (rand_u, rand_k)}
+
+
+K3_CLOUDS = _k3_clouds()
+
+
+@pytest.mark.parametrize('lanes', [1, 2, 8, 16, 32])
+@pytest.mark.parametrize('cloud', sorted(K3_CLOUDS))
+def test_k3_split_merge_matches_plain_and_pallas(cloud, lanes):
+    """Indices equal; squared distances equal to the plain version's bits
+    (compared after the same square root: torch's on the CPU is not always
+    the correctly rounded one that the kernel's sqrtf and numpy compute)
+    and to the Pallas kernel's within float32 rounding."""
+    u, k = K3_CLOUDS[cloud]
+    d2, i = emulate_k3(u, k, lanes)
+    dp, ip = interpolate.three_nn_plain(torch.from_numpy(u)[None],
+                                        torch.from_numpy(k)[None])
+    np.testing.assert_array_equal(i, ip.numpy()[0])
+    np.testing.assert_array_equal(torch.sqrt(torch.from_numpy(d2)).numpy(),
+                                  dp.numpy()[0])
+    dj, ij = three_nn_pallas(u[None], k[None], interpret=True)
+    np.testing.assert_array_equal(i, np.asarray(ij)[0])
+    np.testing.assert_allclose(np.sqrt(d2), np.asarray(dj)[0], rtol=1e-6,
+                               atol=0)
+
+
+def test_k3_ties_cross_slices():
+    """The clouds do hold ties that the split puts in different slices,
+    and the merge gives them to the lower index."""
+    u, k = K3_CLOUDS['duplicated']
+    d, i = emulate_k3(u[:16], k, 4)
+    assert (d[:, 0] == 0).all() and (i[:, 0] == np.arange(16)).all()
+    assert (i[:, 1] == np.arange(16) + 251).all()      # the copy, slice 3
+    u, k = K3_CLOUDS['lattice']
+    d, i = emulate_k3(u, k, 8)
+    tied = d[:, 0] == d[:, 2]        # inside the lattice: 8 corners equal
+    assert tied.mean() > 0.5
+    assert (np.diff(i[tied], axis=1) > 0).all()        # lowest indices
+
+
+MAIN_PATH_K3 = [   # (B, N queries, M known, lanes, queries a thread,
+                   #  threads a block, blocks over N)
+    (1, 16384, 4096, 16, 4, 256, 256),   # FP level 0 (the finest)
+    (1, 4096, 1024, 32, 2, 256, 256),
+    (1, 1024, 256, 32, 1, 128, 256),
+    (1, 256, 64, 32, 1, 64, 128),
+    (4, 16384, 4096, 4, 4, 256, 64),     # lockstep streams, S = 4
+    (4, 4096, 1024, 16, 4, 256, 64),
+    (4, 1024, 256, 32, 2, 256, 64),
+    (4, 256, 64, 32, 1, 128, 64),
+]
+
+
+@pytest.mark.parametrize('b,n,m,lanes,q,threads,blocks', MAIN_PATH_K3)
+def test_three_nn_launch_plan_main_path(b, n, m, lanes, q, threads, blocks):
+    plan = interpolate.three_nn_launch_plan(b, n, m)
+    assert plan == (lanes, q, threads, (blocks, b))
+    per_block = threads // lanes * q
+    assert blocks * per_block >= n > (blocks - 1) * per_block
+    assert m >= 2 * lanes                      # a lane holds 2+ points
+    # the grid covers every SM where 64-thread blocks can
+    assert blocks * b >= min(132, b * n * lanes // (64 * q))
+    threads_total = blocks * b * threads
+    assert threads_total >= interpolate.K3_TARGET_THREADS or (
+        lanes == 32 and q == 1) or threads_total * q >= b * n * lanes
+
+
+def test_three_nn_launch_plan_limits():
+    assert interpolate.three_nn_launch_plan(1, 5, 3) == (1, 1, 64, (1, 1))
+    assert interpolate.three_nn_launch_plan(1, 100, 8).lanes == 4
+    with pytest.raises(ValueError, match='at least 3'):
+        interpolate.three_nn_launch_plan(1, 16, 2)
+    with pytest.raises(ValueError, match='queries'):
+        interpolate.three_nn_launch_plan(1, 0, 16)
+
+
+# ------------------------------------------------ K5 (whole SA level)
+
+def _k5_levels():
+    """(level, N, M, nsamples, widths per scale) of RPN levels 1-3 at the
+    default config (K5's calls on the main path)."""
+    sa = torch_config.Config().RPN.SA_CONFIG
+    out, cin = [], sum(m[-1] for m in sa.MLPS[0])
+    for k in (1, 2, 3):
+        out.append((k, sa.NPOINTS[k - 1], sa.NPOINTS[k], sa.NSAMPLE[k],
+                    [[3 + cin, *mlp] for mlp in sa.MLPS[k]]))
+        cin = sum(m[-1] for m in sa.MLPS[k])
+    return out
+
+
+K5_LEVELS = {lv[0]: lv[1:] for lv in _k5_levels()}
+
+MAIN_PATH_K5 = [   # (level, B, chunk, chunks, consumers, blocks an SM,
+                   #  col splits, MLP units a chunk per scale, tickets)
+    (1, 1, 64, 16, 256, 2, (1, 1), (16, 32), 1408),
+    (2, 1, 16, 16, 131, 1, (1, 1), (4, 8), 480),
+    (3, 1, 16, 4, 131, 1, (2, 2), (8, 16), 232),
+    (1, 4, 64, 16, 232, 2, (1, 1), (16, 32), 5632),
+    (2, 4, 16, 16, 128, 1, (1, 1), (4, 8), 1920),
+    (3, 4, 16, 4, 128, 1, (1, 1), (4, 8), 736),
+]
+
+
+def k5_ticket(plan, b, nsamples, t):
+    """sa_level.cu's meaning of ticket t: ('table', scale, tile), ('query',
+    cloud, chunk, unit) or ('mlp', cloud, chunk, scale, unit)."""
+    if t < plan.table_tiles:
+        return ('table', t)
+    group = plan.query_units + sum(plan.mlp_units)
+    g, r = divmod(t - plan.table_tiles, group)
+    k, cloud = divmod(g, b)
+    if r < plan.query_units:
+        return ('query', cloud, k, r)
+    r -= plan.query_units
+    for s, units in enumerate(plan.mlp_units):
+        if r < units:
+            return ('mlp', cloud, k, s, r)
+        r -= units
+    raise AssertionError(t)
+
+
+@pytest.mark.parametrize(
+    'level,b,chunk,chunks,consumers,per_sm,splits,units,tickets',
+    MAIN_PATH_K5, ids=[f'L{c[0]}_B{c[1]}' for c in MAIN_PATH_K5])
+def test_k5_launch_plan_main_path(level, b, chunk, chunks, consumers, per_sm,
+                                  splits, units, tickets):
+    n, m, nsamples, widths = K5_LEVELS[level]
+    plan = sa_level.k5_launch_plan(b, n, m, nsamples, widths)
+    assert plan.fps == sampling.fps_launch_plan(n)     # K1's plan, as is
+    assert (plan.chunk, plan.chunks, plan.consumers, plan.per_sm) == (
+        chunk, chunks, consumers, per_sm)
+    assert (plan.col_splits, plan.mlp_units, plan.tickets) == (splits, units,
+                                                               tickets)
+    # chunks tile the centres in whole MLP blocks and query blocks
+    assert chunk * (chunks - 1) < m <= chunk * chunks
+    assert all(chunk % (64 // s) == 0 for s in nsamples)
+    assert chunk % 8 == 0 and plan.query_units == chunk // 8
+    # the consumers fill the SMs beside the FPS clusters, two an SM only
+    # where half an SM's shared memory holds every scale's MLP
+    assert plan.consumers / per_sm + b * plan.fps[0] <= 132
+    assert (per_sm == 2) == (max(*plan.smem, 12 * n) <= 233472 // 2 - 2048)
+    # every scale's MLP units in the one grid, split together where the
+    # real blocks of all scales then still fit the consumers
+    real = [b * m // (64 // s) * z for s, z in zip(nsamples, splits)]
+    assert max(splits) == 1 or sum(real) <= plan.consumers
+    assert max(splits) == max(plan.col_splits)
+    assert plan.tickets == plan.table_tiles + b * chunks * (
+        plan.query_units + sum(plan.mlp_units))
+    assert plan.counters == 2 + b * chunks
+    assert all(sm <= 232448 for sm in plan.smem)
+
+
+@pytest.mark.parametrize('level,b', [(1, 1), (3, 1), (2, 4)])
+def test_k5_tickets_wait_only_on_earlier_work(level, b):
+    """Every MLP unit comes after all table tiles and after its chunk's
+    query units; a query unit waits only on the FPS.  So a block that
+    waits, waits for the FPS (all resident) or for a ticket that a running
+    block already holds: the consumer grid cannot deadlock."""
+    n, m, nsamples, widths = K5_LEVELS[level]
+    plan = sa_level.k5_launch_plan(b, n, m, nsamples, widths)
+    seen_query, tables, last_table = {}, 0, -1
+    for t in range(plan.tickets):
+        kind = k5_ticket(plan, b, nsamples, t)
+        if kind[0] == 'table':
+            tables += 1
+            last_table = t
+        elif kind[0] == 'query':
+            seen_query[kind[1:3]] = seen_query.get(kind[1:3], 0) + 1
+        else:
+            assert tables == plan.table_tiles and last_table < t
+            assert seen_query.get(kind[1:3]) == plan.query_units
+    assert len(seen_query) == b * plan.chunks
+
+
+@pytest.mark.parametrize('change,match', [
+    (dict(npoint=5000), 'npoint'),
+    (dict(n=19300, npoint=64), 'at most'),
+    (dict(nsamples=(16, 12)), 'nsample'),
+    (dict(nsamples=(16, 128)), 'nsample'),
+    (dict(nsamples=(16,) * 5, widths=[[99, 64, 64]] * 5), 'scales'),
+    (dict(widths=[[99, 64], [99, 64, 96]]), 'layers'),
+    (dict(widths=[[99] + [64] * 6, [99, 64, 96]]), 'layers'),
+    (dict(widths=[[99, 64, 66], [99, 64, 96]]), 'multiples of 4'),
+    (dict(nsamples=(4, 32), widths=[[99, 1024, 1024, 1024], [99, 64, 96]]),
+     'shared memory'),
+])
+def test_k5_launch_plan_refuses(change, match):
+    args = dict(b=1, n=4096, npoint=1024, nsamples=(16, 32),
+                widths=[[99, 16, 16, 32], [99, 32, 32, 64]])
+    sa_level.k5_launch_plan(**args)
+    with pytest.raises(ValueError, match=match):
+        sa_level.k5_launch_plan(**(args | change))

@@ -226,7 +226,7 @@ def test_k5_fits_the_main_path():
                 torch.zeros(1, n, 3), torch.zeros(1, n, cin),
                 sa.NPOINTS[k], sa.RADIUS[k], sa.NSAMPLE[k], layers,
                 check=kernels.check_layout)
-            assert [w[-1] for w, _ in plan] == [m[-1] for m in sa.MLPS[k]]
+            assert [w[-1] for w in plan] == [m[-1] for m in sa.MLPS[k]]
         n, cin = sa.NPOINTS[k], cout
 
 
