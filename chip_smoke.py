@@ -20,7 +20,10 @@ Phases, in order; any failure exits non-zero:
             '*' and the kernel line's "host_clocked" mark a time the host's
             launches may have set.  K6 is also timed against
             permute().contiguous() (the move alone) and its deconv (matmul
-            + K6) against F.conv_transpose2d.
+            + K6) against F.conv_transpose2d.  K2's plan (warps a cloud,
+            clouds a block, points a lane) and us a step are printed per
+            call, with a sweep of 1, 2 and 4 warps a cloud (each also
+            held against the plain version).
 3. step     the detection step at the default Config() (bfloat16 network,
             16384 points, 384x1280 uint8 image, random weights from seed 0)
             runs 3 frames with the launch counts set to 0 just before; each
@@ -55,7 +58,8 @@ Phases, in order; any failure exits non-zero:
             records every kernel's inputs, and each call is held against
             its plain version with phase 2's and 5's tolerances (K1 once,
             on level 0 of all streams, 4 x 16384 points; K2 and K4 over
-            400 RoI clouds; K3, K5 and K6 at batch 4).  Then 3 frames with
+            400 RoI clouds; K3, K5 and K6 at batch 4; K2 also timed, with
+            its plan, us a step and warp sweep).  Then 3 frames with
             the launch counts set to 0 just before; each kernel must launch
             its per-frame count on every lockstep frame (not per stream),
             packed (4, 64, 10) rows must be finite and some emitted, and
@@ -67,11 +71,29 @@ Phases, in order; any failure exits non-zero:
             ragged tail) against JointPipeline on the same frames: frame
             ids and the tids of the emitted rows equal, boxes within 1e-3
             of their scale.
+10. backward one backward of the RPN backbone (4 SA levels, 4 FP levels,
+            LI-Fusion, the image pyramid) of the main path's config in
+            float32, TF32 off, weights from seed 0, at 16384 points (so
+            every level takes the route it takes on the main path) and a
+            96x320 image (reduced from 384x1280 to keep the CPU's backward
+            short).  Under autograd K4 and K5 must launch 0 times (their
+            levels take the differentiable tensor-op routes, as the JAX
+            package does), K1 and K3 4 times and K6 4 times through its
+            autograd.Function; every parameter's gradient on the card must
+            be present and finite and within 1e-4 of its scale of the
+            gradient on the card with every wrapper's plain version; the
+            features within 1e-4 of the CPU's.  The gradients on the card
+            against the CPU's are measured beside the CPU's own spread (the
+            same frame with every pixel moved by one ulp) and printed:
+            ReLU and max-pool decisions within rounding of their threshold
+            flip between any two float32 evaluations, so at these widths no
+            1e-4 gate holds between two devices.
 
 Prints a {"kernels": [...]} line (launches from phase 6; per path from
 phases 3, 6 and 8; per-call times and bounds; K1's largest placeable
-cluster, its cluster size at each N and us a step at level 0; K3's plan and
-library time per FP level; K5's FPS floor per level; K4's and K5's
+cluster, its cluster size at each N and us a step at level 0; K2's plan,
+us a step and warp sweep per call at S = 1 and 4; K3's plan and library
+time per FP level; K5's FPS floor per level; K4's and K5's
 tensor-core route, with bounds at the TF32 peak for the three products of
 each multiply-add and, for reference, as float32 FMAs), the card's name
 and power limit, and as its last line {"ok": true, "device": {...}}.  Needs
@@ -85,6 +107,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -138,6 +161,12 @@ JOINT = dict(max_tracks=64, track_k=16, det_score_thresh=0.2,
              assign='hungarian')
 STREAMS = 4
 HOST_READS = 2          # tracker device-to-host reads a lockstep frame
+K2_WARPS = (1, 2, 4)    # K2's plans swept: warps a cloud
+GRAD_TOL = 1e-4
+# phase 10: kernel launches of one backbone forward under autograd
+PER_GRAD = {'fps': 4, 'fps_batched': 0, 'three_nn': 4,
+            'grouped_gather_mlp_max': 0, 'sa_level': 0, 'depth_to_space': 4}
+GRAD_IMG_HW = (96, 320)
 
 
 class SmokeFailure(Exception):
@@ -289,21 +318,36 @@ def record_kernel_inputs(run):
     return (calls, deconvs), out
 
 
+def fps_batched_with(xyz, npoint, warps):
+    """K2 with `warps` warps a cloud, whatever the wrapper's plan."""
+    from jmodt_torch.ops import kernels
+    b, n, _ = xyz.shape
+    ppt = 1
+    while 32 * warps * ppt < n:
+        ppt *= 2
+    out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
+    kernels.launch('fps_batched', 'jmodt_fps_batched', xyz.data_ptr(), b, n,
+                   npoint, warps, ppt, out.data_ptr())
+    return out
+
+
 def check_kernels(recorded, per_frame, timed=True):
     """Each recorded call of the kernels in `per_frame` ({name: calls a
-    frame}) against its plain version and, when `timed`, its kernel, plain
-    and library times and its bound.  Returns {kernel name: aggregate over
-    the frame's calls}."""
+    frame}) against its plain version and, for the kernels `timed` names
+    (True: all), its kernel, plain and library times and its bound.
+    Returns {kernel name: aggregate over the frame's calls}."""
     from jmodt_torch.ops import depth_to_space as d2s
     from jmodt_torch.ops import fused_sa, interpolate, kernels, sampling
     calls, deconvs = recorded
     agg = {}
+    timed_names = set(per_frame) if timed is True else set(timed or ())
     for name, per in per_frame.items():
         args_list = calls[name]
         check(len(args_list) == per, f'{name}: {len(args_list)} calls a '
               f'frame, expected {per}')
+        on = name in timed_names
         if name == 'sa_level':
-            agg[name] = check_k5(args_list, timed)
+            agg[name] = check_k5(args_list, on)
             continue
         tot = tally('ms', 'plain_ms', 'library_ms')
         for i, args in enumerate(args_list):
@@ -328,6 +372,17 @@ def check_kernels(recorded, per_frame, timed=True):
                     call.update(zip(('cluster', 'threads', 'ppt'), plan))
                     extra = (f' cluster {plan[0]} x {plan[1]} threads x '
                              f'{plan[2]} points')
+                else:
+                    plan = sampling.fps_batched_launch_plan(b, n)
+                    call.update(zip(('warps', 'clouds', 'ppt'), plan))
+                    extra = (f' plan {plan[0]} warps a cloud x {plan[1]} '
+                             f'clouds a block x {plan[2]} points a lane')
+                    want = fns[1](*args)
+                    for w in K2_WARPS:
+                        check(torch.equal(fps_batched_with(xyz, npoint, w),
+                                          want),
+                              f'K2 {b}x{n}->{npoint} with {w} warps a '
+                              'cloud: indices differ')
             elif name == 'three_nn':
                 u, kn = args
                 b, n, m = u.shape[0], u.shape[1], kn.shape[1]
@@ -369,7 +424,7 @@ def check_kernels(recorded, per_frame, timed=True):
                 shape = (f'B={b} k={k} {h0}x{w0}x{k * k * r}->{h0 * k}x'
                          f'{w0 * k}x{r}')
                 call = dict(b=b, k=k)
-                if timed:
+                if on:
                     check(len(deconvs) == per,
                           f'{len(deconvs)} NonOverlapDeconv calls a frame')
                     mod, x = deconvs[i]
@@ -411,7 +466,7 @@ def check_kernels(recorded, per_frame, timed=True):
                          f'{"->".join(map(str, widths))}')
                 call = dict(b=b, m=m, s=s, widths=widths)
             tot['max_abs_err'] = max(tot['max_abs_err'], err)
-            if not timed:
+            if not on:
                 print(f'  {name:24s} {shape:38s} equal to plain, max_abs_err '
                       f'{err:.3g}', flush=True)
                 continue
@@ -429,9 +484,15 @@ def check_kernels(recorded, per_frame, timed=True):
             if name == 'three_nn':
                 call.update(plain_ms=times['plain_ms'][0],
                             library_ms=times['library_ms'][0])
-            if name == 'fps':
+            if name in ('fps', 'fps_batched'):
                 call['us_per_step'] = times['ms'][0] * 1e3 / (npoint - 1)
                 extra += f', {call["us_per_step"]:.3f} us a step'
+            if name == 'fps_batched':
+                sweep = {w: cuda_ms(fps_batched_with, (xyz, npoint, w), 10)
+                         for w in K2_WARPS}
+                call['sweep_ms'] = {str(w): t[0] for w, t in sweep.items()}
+                extra += '; warps a cloud ' + ', '.join(
+                    f'{w}: {show(t)}' for w, t in sweep.items())
             tot['per_call'].append(call)
             print(f'  {name:24s} {shape:38s} kernel {show(times["ms"])}  '
                   f'plain {show(times["plain_ms"])}  library '
@@ -738,9 +799,9 @@ def lockstep_inputs(frames, t, streams):
 
 def run_batched(bjoint, cfg, frames):
     """Phase 8: one lockstep frame records every kernel's inputs, which are
-    then held against the plain versions; then 3 frames with per-frame
-    launch and host-read checks.  Returns (ms a lockstep frame, launches,
-    rows emitted a lockstep frame)."""
+    then held against the plain versions (K2 also timed); then 3 frames
+    with per-frame launch and host-read checks.  Returns (ms a lockstep
+    frame, launches, rows emitted a lockstep frame, K2's aggregate)."""
     from jmodt_torch.ops import kernels
     from jmodt_torch.tracking import device_tracker
     states = new_state(cfg, streams=STREAMS)
@@ -749,7 +810,8 @@ def run_batched(bjoint, cfg, frames):
     level0 = tuple(recorded[0]['fps'][0][0].shape)
     check(level0 == (STREAMS, cfg.RPN.NUM_POINTS, 3),
           f'streams: K1 took {level0}, expected level 0 of all streams')
-    check_kernels(recorded, PER_FRAME_JOINT, timed=False)
+    k2 = check_kernels(recorded, PER_FRAME_JOINT,
+                       timed=('fps_batched',))['fps_batched']
     inputs = [lockstep_inputs(frames, t, STREAMS) for t in (1, 2, 3)]
     kernels.launches.clear()
     reads0 = device_tracker.host_syncs
@@ -780,7 +842,7 @@ def run_batched(bjoint, cfg, frames):
               f'streams frame {i}: non-finite rows')
         emitted += int((packed[..., 9] > 0.5).sum())
     check(emitted > 0, 'streams: no row emitted in 3 lockstep frames')
-    return ms, counts, emitted / len(packs)
+    return ms, counts, emitted / len(packs), k2
 
 
 def batched_parity(frames, streams=2, n_frames=2):
@@ -850,6 +912,119 @@ def scan_vs_joint(cfg, frames, chunk=3):
     return err, rows
 
 
+# ----------------------------------------------------------------- phase 10
+
+def backbone_backward(cfg32, frame, cot, dev, plain=False, img_scale=1.0):
+    """One forward and backward of the RPN backbone (weights from seed 0)
+    on `dev`; `plain` runs every kernel wrapper's plain version (also on
+    the card), `img_scale` multiplies the image.  Returns (features,
+    {parameter: gradient or None}, launches, K6 backward calls)."""
+    from jmodt_torch.models.point_rcnn import build_detector
+    from jmodt_torch.ops import depth_to_space as d2s
+    from jmodt_torch.ops import kernels
+    backbone = build_detector(cfg32, device=dev, seed=0).rpn.backbone
+    pts, img, xy = (torch.as_tensor(frame[k], device=dev)
+                    for k in ('pts_input', 'img', 'pts_xy'))
+    backward, on_card = d2s.DepthToSpace.backward, kernels.on_card
+    k6_backward = []
+
+    def counted(ctx, grad):
+        k6_backward.append(1)
+        return backward(ctx, grad)
+
+    d2s.DepthToSpace.backward = staticmethod(counted)
+    if plain:
+        kernels.on_card = lambda t: False
+    kernels.launches.clear()
+    try:
+        with torch.enable_grad():
+            _, feats = backbone(pts, img * img_scale, xy)
+            (feats * cot.to(dev)).sum().backward()
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+    finally:
+        d2s.DepthToSpace.backward, kernels.on_card = backward, on_card
+    grads = {name: None if p.grad is None else p.grad.detach().cpu()
+             for name, p in backbone.named_parameters()}
+    return (feats.detach().cpu(), grads, dict(kernels.launches),
+            len(k6_backward))
+
+
+def grad_errs(got, want):
+    """{parameter: max |got - want| over max |want|}."""
+    return {name: float((got[name].double() - w.double()).abs().max()
+                        / max(float(w.abs().max()), 1e-30))
+            for name, w in want.items()}
+
+
+def backward_parity(cfg32):
+    """Phase 10: the RPN backbone's backward on the card with its kernels,
+    on the card with every kernel wrapper's plain version, and on the CPU.
+    Gates: the launches under autograd; every gradient on the card
+    present and finite; the card's gradients with its kernels against
+    the card's with the plain versions (the same forward, since K1, K3
+    and K6 equal their plain versions bit for bit) within GRAD_TOL of
+    scale; the features against the CPU's within GRAD_TOL of scale.  The
+    card's gradients against the CPU's, and the CPU's against the CPU's
+    for the same frame with every pixel moved by at most one float32 ulp,
+    are measured and returned: ReLU and max-pool decisions that sit within
+    rounding of their threshold flip between any two float32 evaluations,
+    and each flip moves a whole term of a gradient."""
+    from jmodt_torch.data.synthetic import make_eval_frame
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    frame = make_eval_frame(0, cfg32, img_hw=GRAD_IMG_HW)
+    cot = torch.randn(1, cfg32.RPN.NUM_POINTS,
+                      cfg32.LI_FUSION.IMG_FEATURES_CHANNEL,
+                      generator=torch.Generator().manual_seed(10))
+    # the two card runs compare gradients of one forward: deterministic
+    # scatters keep their sums in one order (ops without a deterministic
+    # form, such as grid_sample's backward, run as they are)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore', UserWarning)
+            feats, grads, launches, k6_back = backbone_backward(
+                cfg32, frame, cot, 'cuda')
+            pfeats, pgrads, plaunches, _ = backbone_backward(
+                cfg32, frame, cot, 'cuda', plain=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name, per in PER_GRAD.items():
+        check(launches.get(name, 0) == per, f'backward: {name} launched '
+              f'{launches.get(name, 0)} times under autograd, expected {per}')
+    check(k6_back == PER_GRAD['depth_to_space'],
+          f'backward: K6 backward ran {k6_back} times')
+    for name, g in grads.items():
+        check(g is not None and bool(torch.isfinite(g).all()),
+              f'backward: no finite gradient for {name}')
+    check(sum(plaunches.values()) == 0,
+          f'backward: the plain run launched {plaunches}')
+    check(scale_err(feats, pfeats) <= GRAD_TOL,
+          f'backward: features with kernels vs plain versions err '
+          f'{scale_err(feats, pfeats)}')
+    vs_plain = grad_errs(grads, pgrads)
+    worst = max(vs_plain, key=vs_plain.get)
+    check(vs_plain[worst] <= GRAD_TOL, f'backward: {worst} gradient with '
+          f'kernels vs plain versions err {vs_plain[worst]}')
+    cfeats, cgrads, _, _ = backbone_backward(cfg32, frame, cot, 'cpu')
+    fwd_err = scale_err(feats, cfeats)
+    check(fwd_err <= GRAD_TOL, f'backward: features card vs CPU err '
+          f'{fwd_err}')
+    _, ugrads, _, _ = backbone_backward(cfg32, frame, cot, 'cpu',
+                                        img_scale=1.0 + 2.0 ** -23)
+    return dict(params=len(grads), launches=launches, k6_backward=k6_back,
+                vs_plain=(vs_plain[worst], worst), fwd_vs_cpu=fwd_err,
+                vs_cpu=grad_errs(grads, cgrads),
+                cpu_vs_ulp=grad_errs(ugrads, cgrads))
+
+
+def over(errs, tol=GRAD_TOL):
+    """(largest error, its parameter, how many are over `tol`)."""
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst, sum(e > tol for e in errs.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -913,7 +1088,7 @@ def main() -> int:
     bjoint = build_joint(mcfg, batched=True)
     print(f'[8 streams] inputs recorded from one lockstep frame (S={STREAMS}'
           '); kernel vs plain version:', flush=True)
-    bms, bcounts, brows = run_batched(bjoint, mcfg, frames)
+    bms, bcounts, brows, k2_streams = run_batched(bjoint, mcfg, frames)
     del bjoint
     print(f'[8 streams] make_batched_joint_step, S={STREAMS} (bfloat16), 3 '
           f'lockstep frames: {bms:.2f} ms a lockstep frame, '
@@ -929,6 +1104,22 @@ def main() -> int:
     print(f'[9 scan] ScanPipeline (chunk 3, 4 frames, ragged tail) vs '
           f'JointPipeline: frame ids and tids equal ({srows} rows), boxes '
           f'err {serr:.3g}', flush=True)
+
+    t0 = time.perf_counter()
+    back = backward_parity(mega_cfg('float32'))
+    cpu, ulp = over(back['vs_cpu']), over(back['cpu_vs_ulp'])
+    print(f'[10 backward] RPN backbone, float32, {mcfg.RPN.NUM_POINTS} '
+          f'points, {GRAD_IMG_HW[0]}x{GRAD_IMG_HW[1]} image: launches under '
+          f'autograd {back["launches"]}, K6 backward {back["k6_backward"]} '
+          f'times; {back["params"]} parameter gradients present and finite; '
+          f'with kernels vs plain versions on the card: largest err '
+          f'{back["vs_plain"][0]:.3g} of scale ({back["vs_plain"][1]}); '
+          f'features card vs CPU err '
+          f'{back["fwd_vs_cpu"]:.3g}; gradients card vs CPU (measured, not '
+          f'gated): largest err {cpu[0]:.3g} ({cpu[1]}), {cpu[2]} over '
+          f'{GRAD_TOL:g}; CPU vs CPU with the image moved by one ulp: '
+          f'largest {ulp[0]:.3g} ({ulp[1]}), {ulp[2]} over {GRAD_TOL:g} '
+          f'({time.perf_counter() - t0:.1f} s)', flush=True)
 
     rows = []
     for k in KERNELS:
@@ -950,6 +1141,9 @@ def main() -> int:
         if k['name'] in ('grouped_gather_mlp_max', 'sa_level'):
             row['tensor_cores'] = K4_ROUTE
             row['bound_f32_fma_ms'] = max(a['t_f32'], a['t_bytes']) * 1e3
+        if k['name'] == 'fps_batched':
+            row['per_call_streams'] = k2_streams['per_call']
+            row['ms_streams'] = k2_streams['ms']
         if k['name'] == 'fps':
             row['max_cluster'] = kernels.fps_max_cluster()
             row['cluster_by_n'] = {str(c['n']): c['cluster']

@@ -34,6 +34,7 @@ class PointRCNN(nn.Module):
         self.mode = mode
         self.rpn = RPN(cfg, use_xyz=use_xyz, device=device)
         self.rcnn = RCNN(cfg, use_xyz=use_xyz, device=device)
+        self.eval()      # the eval forward: its SA levels take the eval paths
 
     @torch.no_grad()
     def forward(self, pts_input, img=None, pts_xy=None):

@@ -18,6 +18,24 @@ from jmodt_torch.ops.sa_level import sa_level_fused
 from jmodt_torch.ops.sampling import farthest_point_sample, gather_xyz
 
 
+def sa_route(training: bool, under_grad: bool, use_bn: bool, mega: bool,
+             fused: bool) -> str:
+    """Which path an SA level takes: the JAX package's gate
+    (`jmodt_tpu/models/pointnet2.py:58-59, 121-122, 134`).
+
+    'mega' is the whole level in one call (K5), eval only and never under
+    autograd; 'fused_kernel' the BN-folded path through K4; 'fused_plain'
+    the same folded math as tensor ops, which autograd differentiates (the
+    JAX package's `use_pallas=False`), taken in training without BN or
+    under autograd; 'plain' the unfused path, which training with BN
+    needs.  `mega` and `fused` are the level's flags."""
+    if mega and not training and not under_grad:
+        return 'mega'
+    if fused and (not training or not use_bn):
+        return 'fused_plain' if training or under_grad else 'fused_kernel'
+    return 'plain'
+
+
 class SAModuleMSG(nn.Module):
     """Multi-scale-grouping set abstraction.
 
@@ -31,7 +49,9 @@ class SAModuleMSG(nn.Module):
     always float32) for each scale; it needs npoint and use_xyz.  `mega`
     runs the whole level, FPS included, in one call (ops/sa_level.py, K5
     on the card, always float32); it takes precedence over `fused` and has
-    the same needs.
+    the same needs.  `sa_route` decides with the module's training flag and
+    whether autograd records the call: grad mode on, and a parameter or a
+    float input requiring grad.
     """
 
     def __init__(self, npoint: Optional[int], radii: Sequence[float],
@@ -44,6 +64,7 @@ class SAModuleMSG(nn.Module):
         self.radii = tuple(radii)
         self.nsamples = tuple(nsamples)
         self.use_xyz = use_xyz
+        self.use_bn = use_bn
         self.dtype = dtype
         for i, mlp in enumerate(mlps):
             self.add_module(f'mlp_{i}', PointwiseMLP(
@@ -57,7 +78,13 @@ class SAModuleMSG(nn.Module):
                 fused: bool = False, mega: bool = False):
         if self.npoint is None:
             return None, self._group_all(xyz, features), None
-        if mega and self.use_xyz:
+        under_grad = torch.is_grad_enabled() and (
+            xyz.requires_grad
+            or (features is not None and features.requires_grad)
+            or any(p.requires_grad for p in self.parameters()))
+        route = sa_route(self.training, under_grad, self.use_bn,
+                         mega and self.use_xyz, fused and self.use_xyz)
+        if route == 'mega':
             return sa_level_fused(
                 xyz.contiguous(),
                 None if features is None else features.float().contiguous(),
@@ -66,9 +93,10 @@ class SAModuleMSG(nn.Module):
         idx = farthest_point_sample(xyz, self.npoint)
         new_xyz = gather_xyz(xyz, idx)
         nbrs = ball_query_multi(self.radii, self.nsamples, xyz, new_xyz)
-        if fused and self.use_xyz:
+        if route != 'plain':
             outs = [fused_sa_eval(xyz, features, new_xyz, nbr,
-                                  fold_pointwise_mlp(mlp))
+                                  fold_pointwise_mlp(mlp),
+                                  use_kernel=route == 'fused_kernel')
                     for nbr, mlp in zip(nbrs, self._mlps())]
             return new_xyz, torch.cat(outs, dim=-1), idx
         cdt = self.dtype

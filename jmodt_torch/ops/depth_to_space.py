@@ -11,7 +11,13 @@ On a CUDA tensor `depth_to_space` launches K6
 (`jmodt_torch/csrc/depth_to_space.cu`, replaces
 `jmodt_tpu/ops/pallas/depth_to_space.py::depth_to_space_pallas`); on a CPU
 tensor it runs `depth_to_space_plain`, a view + permute + reshape, which is
-also what the kernel is checked against on the card.  float32 and bfloat16;
+also what the kernel is checked against on the card.  Under autograd (grad
+mode on and the table or the bias requiring grad) the move goes through
+`DepthToSpace`, a `torch.autograd.Function` whose forward is the same
+dispatch, so K6 still runs on the card, and whose backward is the inverse
+move (`space_to_depth_plain`) with the bias gradient as the sum over the
+B * H * W pixels, in plain tensor ops: the JAX package's K6 defines no
+VJP, since no JAX model path calls it.  float32 and bfloat16;
 the kernel moves 16-byte vectors, so it takes k*r a multiple of 8 (bf16) or
 4 (float32) and 16-byte aligned tables, which every pyramid level (r = 16)
 gives.
@@ -38,6 +44,14 @@ def depth_to_space_plain(taps: torch.Tensor, k: int, r: int, h0: int,
     return y if bias is None else y + bias.to(y.dtype)
 
 
+def space_to_depth_plain(full: torch.Tensor, k: int, r: int, h0: int,
+                         w0: int) -> torch.Tensor:
+    """The inverse move: (B, h0*k*w0*k, r) -> (B, h0*w0, k*k*r)."""
+    b = full.shape[0]
+    y = full.reshape(b, h0, k, w0, k, r).permute(0, 1, 3, 2, 4, 5)
+    return y.reshape(b, h0 * w0, k * k * r)
+
+
 def _check(taps, k, r, h0, w0, bias, check=kernels.check_cuda) -> None:
     """Raise unless K6 takes these arguments; `check` is
     `kernels.check_cuda`, or `kernels.check_layout` to check all but the
@@ -58,12 +72,42 @@ def _check(taps, k, r, h0, w0, bias, check=kernels.check_cuda) -> None:
         check('bias', bias, taps.dtype, (r,))
 
 
+class DepthToSpace(torch.autograd.Function):
+    """`depth_to_space` with a backward: forward moves the table (K6 on a
+    CUDA tensor), backward moves the incoming gradient back to the
+    tap-major layout and sums it over pixels for the bias."""
+
+    @staticmethod
+    def forward(ctx, taps, bias, k, r, h0, w0):
+        ctx.dims = (k, r, h0, w0)
+        return _move(taps, k, r, h0, w0, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        k, r, h0, w0 = ctx.dims
+        g_taps = g_bias = None
+        if ctx.needs_input_grad[0]:
+            g_taps = space_to_depth_plain(grad, k, r, h0, w0)
+        if ctx.needs_input_grad[1]:
+            g_bias = grad.float().sum((0, 1)).to(grad.dtype)
+        return g_taps, g_bias, None, None, None, None
+
+
 def depth_to_space(taps: torch.Tensor, k: int, r: int, h0: int, w0: int,
                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, h0*w0, k*k*r) tap-major table -> (B, h0*k*w0*k, r) full-res map,
     plus `bias` (r,) in the table's dtype.  CPU tensors take the plain
-    version; CUDA tensors the kernel."""
-    if not taps.is_cuda:
+    version; CUDA tensors the kernel; under autograd both go through
+    `DepthToSpace`."""
+    if torch.is_grad_enabled() and (
+            taps.requires_grad or (bias is not None and bias.requires_grad)):
+        return DepthToSpace.apply(taps, bias, k, r, h0, w0)
+    return _move(taps, k, r, h0, w0, bias)
+
+
+def _move(taps, k, r, h0, w0, bias):
+    """The forward move: K6 on a CUDA tensor, the plain version else."""
+    if not kernels.on_card(taps):
         return depth_to_space_plain(taps, k, r, h0, w0, bias)
     _check(taps, k, r, h0, w0, bias)
     b = taps.shape[0]

@@ -12,7 +12,10 @@ in K4 (`jmodt_torch/csrc/grouped_gather_mlp.cu`, replaces
 `jmodt_tpu/ops/pallas/grouped_gather_mlp.py::grouped_gather_mlp_max`),
 whose layers 2..L run on the tensor cores at float32 accuracy (3xTF32,
 `jmodt_torch/csrc/grouped_mlp.cuh`); on a CPU tensor in
-`grouped_gather_mlp_max_plain`.  Always float32.
+`grouped_gather_mlp_max_plain`.  K4 has no backward: with grad mode on it
+refuses a CUDA input that requires grad (RuntimeError), and
+`fused_sa_eval(use_kernel=False)` is the form autograd differentiates.
+Always float32.
 """
 
 from __future__ import annotations
@@ -153,8 +156,10 @@ def grouped_gather_mlp_max(feats1: torch.Tensor, idx: torch.Tensor,
     :param layers: folded (W (Cin, Cout), b (Cout,)) of layers 2..L
     :return: (B, M, C_last) f32
     """
-    if not feats1.is_cuda:
+    if not kernels.on_card(feats1):
         return grouped_gather_mlp_max_plain(feats1, idx, cxw, b1, layers)
+    kernels.refuse_grad('grouped_gather_mlp_max (K4)', feats1, cxw, b1,
+                        *(t for layer in layers for t in layer))
     b, n, c1 = feats1.shape
     _, m, s = idx.shape
     kernels.check_cuda('feats1', feats1, torch.float32, (b, n, c1))
@@ -185,17 +190,22 @@ def grouped_gather_mlp_max(feats1: torch.Tensor, idx: torch.Tensor,
 
 def fused_sa_eval(xyz: torch.Tensor, feats: Optional[torch.Tensor],
                   new_xyz: torch.Tensor, idx: torch.Tensor,
-                  layers: Layers) -> torch.Tensor:
+                  layers: Layers, use_kernel: bool = True) -> torch.Tensor:
     """One single-scale use_xyz=True SA level on folded eval weights.
 
     :param xyz: (B, N, 3) f32; :param feats: (B, N, C) or None
     :param new_xyz: (B, M, 3) f32 centers; :param idx: (B, M, S) int32
     :param layers: folded (W, b) per MLP layer, W1 (3 + C, C1) first
+    :param use_kernel: False runs `grouped_gather_mlp_max_plain` on any
+        device, the form autograd differentiates (the JAX package's
+        `use_pallas=False`)
     :return: (B, M, C_last) f32
     """
     (w1, b1), rest = layers[0], layers[1:]
     catf = xyz if feats is None else torch.cat([xyz, feats.float()], dim=-1)
     feats1 = torch.matmul(catf, w1)                  # (B, N, C1) pre-gather
     cxw = torch.matmul(new_xyz, w1[:3])              # (B, M, C1)
+    if not use_kernel:
+        return grouped_gather_mlp_max_plain(feats1, idx, cxw, b1, rest)
     return grouped_gather_mlp_max(feats1.contiguous(), idx.contiguous(),
                                   cxw.contiguous(), b1, rest)

@@ -7,7 +7,9 @@ level; on a CPU tensor it runs `three_nn_plain`.  Both compute the direct
 distance (dx*dx + dy*dy) + dz*dz, rounded after every operation, and rank
 by (distance, index): among equal distances the lower index comes first.
 K3 splits each query's known set over L lanes and gives each thread Q
-queries; `three_nn_launch_plan` picks L, Q and the block size.
+queries; `three_nn_launch_plan` picks L, Q and the block size.  K3 has no
+backward: with grad mode on it refuses CUDA coordinates that require grad
+(RuntimeError); the FP levels' coordinates never do.
 """
 
 from __future__ import annotations
@@ -93,8 +95,9 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor):
     """3 nearest known points of each unknown point: (B, N, 3), (B, M, 3)
     -> (dist (B, N, 3), idx (B, N, 3) int32).  CPU tensors take the plain
     version; CUDA tensors the kernel."""
-    if not unknown.is_cuda:
+    if not kernels.on_card(unknown):
         return three_nn_plain(unknown, known)
+    kernels.refuse_grad('three_nn (K3)', unknown, known)
     b, n, _ = unknown.shape
     m = known.shape[1]
     kernels.check_cuda('unknown', unknown, torch.float32, (None, None, 3))

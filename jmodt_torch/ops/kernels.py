@@ -40,7 +40,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     'jmodt_fps': (_P, _I, _I, _I, _I, _I, _I, _P, _P),
     'jmodt_fps_max_cluster': (ctypes.POINTER(_I),),
-    'jmodt_fps_warp': (_P, _I, _I, _I, _P, _P),
+    'jmodt_fps_batched': (_P, _I, _I, _I, _I, _I, _P, _P),
     'jmodt_three_nn': (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     'jmodt_grouped_gather_mlp_max': (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _I, ctypes.POINTER(_P),
@@ -148,6 +148,24 @@ def fps_max_cluster() -> int:
                                f'{err} ({msg})')
         _max_cluster.append(out.value)
     return _max_cluster[0]
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a wrapper given `t` takes its kernel (a CUDA tensor) or its
+    plain version (a CPU tensor).  Every wrapper asks this, so replacing
+    it runs the plain versions on the card too (chip_smoke phase 10)."""
+    return t.is_cuda
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if grad mode is on and one of `tensors` requires grad: the
+    kernel defines no backward, so its output would carry no gradient.
+    Callers under autograd take a differentiable route instead
+    (`models/pointnet2.py::sa_route`)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f'{kernel} defines no backward: it takes no input '
+                           'that requires grad while grad mode is on')
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -12,7 +12,9 @@ centres as it comes.  The wrapper checks its arguments, lays the two grids
 out (`k5_launch_plan`) and allocates outputs, scratch and the zeroed
 counters the consumer grid synchronises through.  On a CPU tensor it
 runs `sa_level_fused_plain`, the composition of the port's plain ops
-(the counterpart of the JAX package's `sa_level_fused_xla`).  Always
+(the counterpart of the JAX package's `sa_level_fused_xla`).  K5 has no
+backward: with grad mode on it refuses a CUDA input that requires grad
+(RuntimeError), as the JAX package never takes it under autodiff.  Always
 float32.
 """
 
@@ -200,9 +202,12 @@ def sa_level_fused(xyz: torch.Tensor, feats: Optional[torch.Tensor],
     :return: (new_xyz (B, M, 3) f32, pooled (B, M, sum C_last) f32,
         idx (B, M) int32)
     """
-    if not xyz.is_cuda:
+    if not kernels.on_card(xyz):
         return sa_level_fused_plain(xyz, feats, npoint, radii, nsamples,
                                     folded_per_scale)
+    kernels.refuse_grad('sa_level_fused (K5)', xyz, feats,
+                        *(t for layers in folded_per_scale
+                          for layer in layers for t in layer))
     widths = _k5_plan(xyz, feats, npoint, radii, nsamples, folded_per_scale)
     b, n, _ = xyz.shape
     dev = xyz.device

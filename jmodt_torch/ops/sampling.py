@@ -2,9 +2,11 @@
 `jmodt_tpu/ops/sampling.py`).
 
 On a CUDA tensor `farthest_point_sample` launches a hand-written kernel
-(`jmodt_torch/csrc/fps.cu`): K2, one warp a cloud (replaces
+(`jmodt_torch/csrc/fps.cu`): K2, 1, 2 or 4 warps a cloud with the cloud
+staged in shared memory (replaces
 `jmodt_tpu/ops/pallas/fps.py::farthest_point_sample_batched_pallas`), for
-B > 1 clouds of at most 1024 points (the RCNN's RoI clouds); K1, one
+B > 1 clouds of at most 1024 points (the RCNN's RoI clouds), laid out by
+`fps_batched_launch_plan`; K1, one
 thread-block cluster a cloud (replaces `farthest_point_sample_pallas`), for
 every other batch and size up to `FPS_MAX_POINTS` (the RPN's level 0 at
 any number of streams), laid out by `fps_launch_plan`.  On a CPU tensor
@@ -33,8 +35,11 @@ FPS_MAX_PPT = 8
 FPS_BLOCK_POINTS = FPS_THREADS * FPS_MAX_PPT
 FPS_MAX_CLUSTER = 16
 FPS_MAX_POINTS = FPS_MAX_CLUSTER * FPS_MAX_THREADS * FPS_MAX_PPT
-# K2 keeps each cloud in one warp's registers: at most 32 points a lane
+# K2 keeps each cloud in the registers of 1, 2 or 4 warps, at most 32
+# points a lane, in blocks of 4 warps
 FPS_WARP_MAX_POINTS = 32 * 32
+K2_BLOCK_WARPS = 4
+K2_SMS = 132            # SMs of an H100, 4 sub-partitions each
 
 
 def farthest_point_sample_plain(xyz: torch.Tensor, npoint: int
@@ -81,10 +86,31 @@ def fps_launch_plan(n: int, max_cluster: int = FPS_MAX_CLUSTER):
     return -(-n // (threads * ppt)), threads, ppt
 
 
+def fps_batched_launch_plan(b: int, n: int):
+    """K2's launch for b clouds of n points: (warps a cloud, clouds a
+    block, points a lane).  A cloud takes 4 warps, one on each
+    sub-partition of an SM of its own, where there are no more clouds than
+    SMs and the cloud gives a lane more than 2 points; else 1 warp.  A
+    block of 4 warps holds 4 / warps clouds, and a lane the power of two
+    of points that covers its share.  On an H100 this was the fastest of
+    1, 2 and 4 warps at the RCNN's shapes, S = 1 and 4 (PERF.md,
+    chip_smoke's sweep)."""
+    if not 1 <= n <= FPS_WARP_MAX_POINTS:
+        raise ValueError(f'K2 takes 1..{FPS_WARP_MAX_POINTS} points a '
+                         f'cloud, got N={n}')
+    if b < 1:
+        raise ValueError(f'K2 needs a cloud, got B={b}')
+    warps = K2_BLOCK_WARPS if b <= K2_SMS and n > 2 * 32 * 4 else 1
+    ppt = 1
+    while 32 * warps * ppt < n:
+        ppt *= 2
+    return warps, K2_BLOCK_WARPS // warps, ppt
+
+
 def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """Iterative farthest point sampling, (B, N, 3) f32 -> (B, npoint)
     int32.  CPU tensors take the plain version; CUDA tensors the kernel."""
-    if not xyz.is_cuda:
+    if not kernels.on_card(xyz):
         return farthest_point_sample_plain(xyz, npoint)
     b, n, _ = xyz.shape
     kernels.check_cuda('xyz', xyz, torch.float32, (None, None, 3))
@@ -92,8 +118,9 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         raise ValueError(f'npoint={npoint} must be in [1, N={n}]')
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     if b > 1 and n <= FPS_WARP_MAX_POINTS:
-        kernels.launch('fps_batched', 'jmodt_fps_warp', xyz.data_ptr(), b,
-                       n, npoint, out.data_ptr())
+        warps, _, ppt = fps_batched_launch_plan(b, n)
+        kernels.launch('fps_batched', 'jmodt_fps_batched', xyz.data_ptr(),
+                       b, n, npoint, warps, ppt, out.data_ptr())
     else:
         csize, threads, ppt = fps_launch_plan(n, kernels.fps_max_cluster())
         kernels.launch('fps', 'jmodt_fps', xyz.data_ptr(), b, n, npoint,

@@ -22,8 +22,10 @@ default Config().  Synthetic frames; one warm-up frame first.  Prints:
   reads (`device_tracker.host_syncs`) and every synchronizing CUDA call of
   the frame (torch's sync debug mode);
 * frame: unsynchronized wall ms per frame over N frames (batched: also per
-  stream-frame), the device time of all kernels per frame from
-  torch.profiler, and the device's idle share;
+  stream-frame), the device time per frame from torch.profiler as the
+  union of the kernels' intervals (kernels that overlap, as K5's two
+  grids do, count once) beside the sum of their durations, and the
+  device's idle share by the union (and by the sum);
 * the kernels with the most device time per frame, and the host ops with
   the most CPU time;
 * deconvs: wall ms per frame with each NonOverlapDeconv computed as the
@@ -42,6 +44,17 @@ import warnings
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def union_length(spans) -> float:
+    """Total length covered by the (start, end) intervals `spans`: time
+    in which at least one of them runs."""
+    total, reach = 0.0, float('-inf')
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
 
 
 def _stage_hooks(model, times):
@@ -283,15 +296,20 @@ def main() -> None:
             run(f)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / args.frames
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev = sum(e.self_device_time_total for e in kern) / 1e3 / args.frames
-    print(f'frame: {wall:.3f} ms wall, {dev:.3f} ms of kernels on the '
-          f'device, idle share {max(0.0, 1 - dev / wall):.3f} '
-          f'({args.frames} frames, profiled)')
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    summed = sum(e.self_device_time_total for e in kern) / 1e3 / args.frames
+    dev = union_length((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == cuda) / 1e3 / args.frames
+    print(f'frame: {wall:.3f} ms wall, {dev:.3f} ms of device time (union '
+          f'of kernel intervals; sum of kernel durations {summed:.3f}), '
+          f'idle share {max(0.0, 1 - dev / wall):.3f} (by the sum '
+          f'{max(0.0, 1 - summed / wall):.3f}) ({args.frames} frames, '
+          'profiled)')
     if streams:
         print(f'stream-frame: {wall / streams:.3f} ms wall, '
-              f'{dev / streams:.3f} ms of kernels ({streams} streams)')
+              f'{dev / streams:.3f} ms of device time ({streams} streams)')
     print('kernels by device time per frame, ms:')
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:20]:
         print(f'  {e.self_device_time_total / 1e3 / args.frames:9.3f}  '

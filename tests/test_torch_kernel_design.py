@@ -1,6 +1,6 @@
-"""The arithmetic of the redesigned K1, K3 and K4 (jmodt_torch/csrc/fps.cuh,
-three_nn.cu, grouped_mlp.cuh), emulated on the CPU, and the wrappers'
-launch plans, K5's among them.
+"""The arithmetic of the redesigned K1, K2, K3 and K4 (jmodt_torch/csrc/
+fps.cuh, fps.cu, three_nn.cu, grouped_mlp.cuh), emulated on the CPU, and
+the wrappers' launch plans, K5's among them.
 
 The CUDA kernels run only on the card, where chip_smoke.py holds them
 against their plain versions.  Here their order of reduction and rounding
@@ -12,6 +12,15 @@ is emulated with numpy and torch on the CPU:
   exactly equal to `farthest_point_sample_plain` and to the JAX package's
   Pallas kernel (interpret mode), on random clouds and on clouds with many
   exact ties, across block boundaries too.
+- K2: W warps a cloud, thread q of the cloud's 32 W holding the points
+  q + 32 W k; each lane's first maximum by a balanced tree over k, the
+  warp's by the redux.sync pair (the largest value bits, then the
+  smallest index among the lanes holding them), then the W warps' by
+  (bits, index) through their slots.  It must give indices exactly equal
+  to `farthest_point_sample_plain` and to the JAX package's batched Pallas
+  kernel (interpret mode) on lattice clouds (many ties) and on clouds
+  whose duplicated points lie in other lanes and warps, at the RCNN's
+  shapes and others, for every W.
 - K4: layers 2..L as 3xTF32 tensor-core products (hi = x rounded to TF32 on
   its bits, lo = x - hi, read by the tensor core truncated to TF32; a_lo
   w_hi + a_hi w_lo + a_hi w_hi in float32).  At the main path's widths and
@@ -33,7 +42,8 @@ import numpy as np
 import pytest
 import torch
 
-from jmodt_tpu.ops.pallas.fps import farthest_point_sample_pallas
+from jmodt_tpu.ops.pallas.fps import (farthest_point_sample_batched_pallas,
+                                     farthest_point_sample_pallas)
 from jmodt_tpu.ops.pallas.three_nn import three_nn_pallas
 from jmodt_torch import config as torch_config
 from jmodt_torch.models.point_rcnn import init_weights
@@ -128,6 +138,138 @@ def test_k1_ties_cross_block_boundaries():
     got = emulate_k1(CLOUDS['duplicated'], 300, (4, 128, 4))
     assert (got < 512).all()
     assert len(set(got.tolist())) == 300
+
+
+# ----------------------------------------------------- K2 (batched FPS)
+
+def _k2_lane_first_max(v: np.ndarray):
+    """A lane's first maximum over its points (last axis, ascending index)
+    by fps.cu's balanced tree: at each level the right half is taken only
+    when strictly larger.  Returns (value, k)."""
+    v = v.copy()
+    kk = np.broadcast_to(np.arange(v.shape[-1]), v.shape).copy()
+    s = 1
+    while s < v.shape[-1]:
+        for k in range(0, v.shape[-1] - s, 2 * s):
+            take = v[..., k + s] > v[..., k]
+            v[..., k] = np.where(take, v[..., k + s], v[..., k])
+            kk[..., k] = np.where(take, kk[..., k + s], kk[..., k])
+        s *= 2
+    return v[..., 0], kk[..., 0]
+
+
+def _redux_pair(bits: np.ndarray, idx: np.ndarray):
+    """The warp argmax of fps.cu over the last axis (32 lanes):
+    __reduce_max_sync of the value bits, then __reduce_min_sync of the
+    indices of the lanes holding that maximum."""
+    top = bits.max(-1)
+    win = np.where(bits == top[..., None], idx, np.uint32(0xffffffff))
+    return top, win.min(-1)
+
+
+def emulate_k2(xyz: np.ndarray, npoint: int, warps: int) -> np.ndarray:
+    """K2 on clouds (B, N, 3) float32 with `warps` warps a cloud, in
+    fps.cu's order: returns (B, npoint) int32."""
+    b, n, _ = xyz.shape
+    t_ = 32 * warps
+    ppt = 1
+    while t_ * ppt < n:
+        ppt *= 2
+    total = t_ * ppt
+    pts = np.zeros((b, total, 3), np.float32)
+    pts[:, :n] = xyz
+    md = np.zeros((b, total), np.float32)
+    md[:, :n] = np.float32(1e10)         # points past N stay at 0
+    out = np.zeros((b, npoint), np.int32)
+    p = pts[:, 0]
+    for t in range(1, npoint):
+        d = pts - p[:, None]
+        dist = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+            + d[..., 2] * d[..., 2]
+        md = np.minimum(md, dist)
+        # point q + T k is thread q's k-th: (B, T, PPT)
+        v, k = _k2_lane_first_max(md.reshape(b, ppt, t_).transpose(0, 2, 1))
+        idx = (np.arange(t_) + t_ * k).astype(np.uint32)       # (B, T)
+        top, win = _redux_pair(v.view(np.uint32).reshape(b, warps, 32),
+                               idx.reshape(b, warps, 32))
+        best_v, best_i = top[:, 0], win[:, 0]                   # warp 0
+        for w in range(1, warps):           # each thread's slot reduction
+            take = (top[:, w] > best_v) | ((top[:, w] == best_v)
+                                           & (win[:, w] < best_i))
+            best_v = np.where(take, top[:, w], best_v)
+            best_i = np.where(take, win[:, w], best_i)
+        out[:, t] = best_i
+        p = pts[np.arange(b), best_i]
+    return out
+
+
+def _k2_clouds(b: int, n: int) -> np.ndarray:
+    """(B, N, 3) float32: cloud j is a lattice (many exact ties), a cloud
+    whose every point has copies at random other positions (so other
+    lanes and warps), or a random one, by j % 3."""
+    rng = np.random.RandomState(1000 * b + n)
+    grid = np.stack(np.meshgrid(np.arange(8), np.arange(8), np.arange(16),
+                                indexing='ij'), -1).reshape(-1, 3)
+    out = np.empty((b, n, 3), np.float32)
+    for j in range(b):
+        if j % 3 == 0:
+            out[j] = grid[rng.permutation(len(grid))[:n]] * 0.5
+        elif j % 3 == 1:
+            base = rng.randn(-(-n // 3), 3).astype(np.float32) * 2
+            out[j] = base[rng.permutation(n) % len(base)]
+        else:
+            out[j] = rng.rand(n, 3).astype(np.float32) * [6.0, 2.0, 8.0]
+    return out
+
+
+def _k2_npoint(n: int) -> int:
+    """The RCNN's steps at its shapes (512 -> 128, 128 -> 32), else N / 2
+    up to 48: past the duplicated clouds' distinct points, so their
+    min-distances tie at 0."""
+    return {512: 128, 128: 32}.get(n, min(n // 2, 48))
+
+
+@pytest.mark.parametrize('b', [2, 100, 400])
+@pytest.mark.parametrize('n', [33, 128, 500, 512, 1024])
+def test_k2_matches_plain_and_pallas(n, b):
+    xyz = _k2_clouds(b, n)
+    npoint = _k2_npoint(n)
+    plain = sampling.farthest_point_sample_plain(torch.from_numpy(xyz),
+                                                 npoint).numpy()
+    for warps in (1, 2, 4):
+        np.testing.assert_array_equal(emulate_k2(xyz, npoint, warps), plain,
+                                      err_msg=f'{warps} warps a cloud')
+    pallas = np.asarray(farthest_point_sample_batched_pallas(
+        xyz, npoint, interpret=True))
+    np.testing.assert_array_equal(plain, pallas)
+
+
+def test_k2_ties_cross_lanes_and_warps():
+    """Every point of the duplicated cloud has a copy in another lane or
+    warp; once the distinct points are taken, every min-distance is 0 and
+    each step must take the smallest index left."""
+    base = np.random.RandomState(2).randn(40, 3).astype(np.float32)
+    xyz = np.concatenate([base] * 8)[None]                  # N = 320
+    got = emulate_k2(xyz, 60, 4)
+    assert (got[0, :40] < 40).all() and len(set(got[0, :40])) == 40
+    np.testing.assert_array_equal(got, sampling.farthest_point_sample_plain(
+        torch.from_numpy(xyz), 60).numpy())
+
+
+def test_k2_redux_pair_is_the_first_argmax():
+    """The redux.sync pair over 32 lanes, each holding its own first
+    maximum, gives numpy's first argmax over all the points of the lanes,
+    on values with many ties (0 among them)."""
+    rng = np.random.RandomState(3)
+    for ppt in (1, 4, 16):
+        vals = rng.randint(0, 4, (2000, ppt, 32)).astype(np.float32)
+        index = np.arange(32 * ppt).reshape(ppt, 32)            # q + 32 k
+        v, k = _k2_lane_first_max(vals.transpose(0, 2, 1))
+        idx = (np.arange(32) + 32 * k).astype(np.uint32)
+        _, win = _redux_pair(v.view(np.uint32), idx)
+        flat = np.zeros((2000, 32 * ppt), np.float32)
+        flat[:, index.reshape(-1)] = vals.reshape(2000, -1)
+        np.testing.assert_array_equal(win, flat.argmax(-1))
 
 
 # ---------------------------------------------------- K4 (3xTF32 split)
@@ -310,6 +452,48 @@ def test_k4_launch_plan_main_path(what, b, m, s, widths, grid, passes):
 def test_k4_launch_plan_refuses(s, widths, match):
     with pytest.raises(ValueError, match=match):
         fused_sa.k4_launch_plan(1, 64, s, widths)
+
+
+MAIN_PATH_K2 = [   # (B, N, plan): RCNN sa_0 / sa_1 at S = 1 and S = 4
+    (100, 512, (4, 1, 4)),
+    (100, 128, (1, 4, 4)),
+    (400, 512, (1, 4, 16)),
+    (400, 128, (1, 4, 4)),
+]
+# an H100 SM: 2048 threads, 32 blocks, 227 KB of shared memory a block
+# and 228 KB an SM (1 KB of it reserved a block)
+_SM_THREADS, _SM_BLOCKS, _SM_SMEM = 2048, 32, 233472
+
+
+def _k2_blocks_per_sm(warps, n):
+    clouds = 4 // warps
+    smem = 16 * clouds * n + 16 * 2 * warps * clouds + 1024
+    return min(_SM_THREADS // 128, _SM_BLOCKS, _SM_SMEM // smem)
+
+
+@pytest.mark.parametrize('b,n,plan', MAIN_PATH_K2)
+def test_fps_batched_launch_plan_main_path(b, n, plan):
+    assert sampling.fps_batched_launch_plan(b, n) == plan
+    warps, clouds, ppt = plan
+    assert warps * clouds == sampling.K2_BLOCK_WARPS
+    assert 32 * warps * ppt >= n > 32 * warps * ppt // 2
+    # every plan the wrapper could take at these shapes (the sweep's
+    # 1, 2 and 4 warps a cloud) runs in one wave on the card
+    for w in (1, 2, 4):
+        blocks = -(-b // (4 // w))
+        assert blocks <= sampling.K2_SMS * _k2_blocks_per_sm(w, n), w
+
+
+def test_fps_batched_launch_plan_limits():
+    assert sampling.fps_batched_launch_plan(2, 1024) == (4, 1, 8)
+    assert sampling.fps_batched_launch_plan(200, 1024) == (1, 4, 32)
+    assert sampling.fps_batched_launch_plan(2, 1) == (1, 4, 1)
+    with pytest.raises(ValueError, match='points a cloud'):
+        sampling.fps_batched_launch_plan(2, 1025)
+    with pytest.raises(ValueError, match='points a cloud'):
+        sampling.fps_batched_launch_plan(2, 0)
+    with pytest.raises(ValueError, match='a cloud'):
+        sampling.fps_batched_launch_plan(0, 512)
 
 
 # ------------------------------------------------------- K3 (three-NN)

@@ -17,7 +17,7 @@ import torch
 
 import __graft_entry__
 from jmodt_torch import config as torch_config
-from jmodt_torch import pipeline, weights
+from jmodt_torch import pipeline, profile_step, weights
 from jmodt_torch.models import inference, point_rcnn
 from jmodt_torch.models.rcnn import CorrelationHead
 from jmodt_torch.ops import (depth_to_space, fused_sa, interpolate, kernels,
@@ -273,3 +273,17 @@ def test_synthetic_frame_shapes():
     assert f['img'].shape == (1, 32, 64, 3) and f['img'].dtype == np.uint8
     assert f['pts_xy'].shape == (1, cfg.RPN.NUM_POINTS, 2)
     assert np.abs(f['pts_xy']).max() <= 1.0
+
+
+@pytest.mark.parametrize('spans,length', [
+    ([], 0.0),
+    ([(0.0, 2.0)], 2.0),
+    ([(0.0, 2.0), (3.0, 4.0)], 3.0),             # disjoint
+    ([(0.0, 4.0), (1.0, 2.0)], 4.0),             # one inside another
+    ([(2.0, 5.0), (0.0, 3.0), (4.0, 6.0)], 6.0),  # overlapping, unsorted
+    ([(0.0, 1.0), (1.0, 2.0)], 2.0),             # touching
+])
+def test_profile_union_of_kernel_intervals(spans, length):
+    """profile_step's device time counts overlapping kernels (K5's two
+    grids) once: the length of the union of their intervals."""
+    assert profile_step.union_length(spans) == length
