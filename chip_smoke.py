@@ -88,9 +88,41 @@ Phases, in order; any failure exits non-zero:
             ReLU and max-pool decisions within rounding of their threshold
             flip between any two float32 evaluations, so at these widths no
             1e-4 gate holds between two devices.
+11. finetune the training step of the link / se finetune (Config(): the
+            RPN frozen, in eval mode under no_grad; the link / se heads
+            trained), bfloat16, 4 frame pairs (8 frames) a step at full
+            width, detector weights from seed 0 and link / se weights from
+            seed 1: 3 steps with the launch counts set to 0 before each;
+            every kernel must launch its per-step count on every step.  The
+            inputs of every kernel call are recorded on step 1 and held
+            against its plain version with phase 2's tolerances (K1 at B =
+            8, K2 over 512 RoI clouds; plans printed, times and bounds in
+            the kernel line).  The loss terms must be finite, every frozen
+            parameter and every RPN BatchNorm buffer bit-equal to its value
+            before the step, and every link / se weight moved.  Prints ms a
+            step (CUDA events and the wall clock, steps 2-3), the peak
+            memory and the share of step 3 spent in the proposal layer
+            (synchronized around it).  Then one float32 step on 1 pair on
+            the card and on the CPU, TF32 off, the same RoI draws: loss
+            terms within 1e-3 of their scale, the sampled RoIs' cls_label
+            and reg_valid_mask equal except where the RoI's IoU lies within
+            1e-4 of a threshold (those are printed).  With random weights
+            no RoI reaches REID.FG_THRESH (0.85), so the finetune loss and
+            its gradient are 0 and the link / se weights move by their
+            decay alone; the parity step runs once more with REID.FG_THRESH
+            0, where every RoI keeps its gt's track id and the link / se
+            terms are not 0.
+12. full     the full-losses training step (RPN.FIXED and TRAIN.FINETUNE
+            off: train-mode BatchNorm, dropout 0.5 in the RPN heads),
+            bfloat16, 1 pair at full width: per-step launch counts (K4 and
+            K5 0 under autograd, K6 4 forward and 4 backward through its
+            autograd.Function), every parameter's gradient present and
+            finite, one BatchNorm layer's new running mean and variance
+            equal (1e-5 of scale) to flax's rule recomputed from the batch
+            it saw, and ms a step.
 
 Prints a {"kernels": [...]} line (launches from phase 6; per path from
-phases 3, 6 and 8; per-call times and bounds; K1's largest placeable
+phases 3, 6, 8 and per training step from 11-12; per-call times and bounds; K1's largest placeable
 cluster, its cluster size at each N and us a step at level 0; K2's plan,
 us a step and warp sweep per call at S = 1 and 4; K3's plan and library
 time per FP level; K5's FPS floor per level; K4's and K5's
@@ -167,6 +199,18 @@ GRAD_TOL = 1e-4
 PER_GRAD = {'fps': 4, 'fps_batched': 0, 'three_nn': 4,
             'grouped_gather_mlp_max': 0, 'sa_level': 0, 'depth_to_space': 4}
 GRAD_IMG_HW = (96, 320)
+# phases 11-12: kernel launches of one training step.  B >= 2 clouds of at
+# most 1024 points take K2, so RPN levels 2-3 run K2 beside RCNN sa_0-1
+PER_STEP_FINETUNE = {'fps': 2, 'fps_batched': 4, 'three_nn': 4,
+                     'grouped_gather_mlp_max': 6, 'sa_level': 0,
+                     'depth_to_space': 4}
+PER_STEP_FULL = {'fps': 2, 'fps_batched': 4, 'three_nn': 4,
+                 'grouped_gather_mlp_max': 0, 'sa_level': 0,
+                 'depth_to_space': 4}
+K6_BACKWARD_FULL = 4
+TRAIN_PAIRS = 4
+TRAIN_STEPS = 3
+IOU_EDGE = 1e-4         # phase 11 parity: RoIs this close to a threshold
 
 
 class SmokeFailure(Exception):
@@ -1025,6 +1069,231 @@ def over(errs, tol=GRAD_TOL):
     return errs[worst], worst, sum(e > tol for e in errs.values())
 
 
+# ------------------------------------------------------------ phases 11, 12
+
+def train_cfg(finetune: bool, dtype: str):
+    """Config() for the link / se finetune (the default, as tools/train.py
+    builds it) or for full losses (its --finetune flag)."""
+    from jmodt_torch.config import Config
+    cfg = Config()
+    R = dataclasses.replace
+    return R(cfg, DTYPE=dtype, RPN=R(cfg.RPN, FIXED=finetune),
+             TRAIN=R(cfg.TRAIN, FINETUNE=finetune))
+
+
+def train_parts(cfg, device=None):
+    """PointRCNN(mode='TRAIN') with detector weights from seed 0 and link /
+    se weights from seed 1, its optimizer and its train step."""
+    from torch import nn
+    from jmodt_torch.models.point_rcnn import build_detector, init_weights
+    from jmodt_torch.train.train_step import make_optimizer, make_train_step
+    model = build_detector(cfg, mode='TRAIN', device=device, seed=0)
+    init_weights(nn.ModuleList([model.rcnn.link_layer, model.rcnn.se_layer]),
+                 1)
+    opt = make_optimizer(cfg, model, steps_per_epoch=TRAIN_STEPS)
+    return model, opt, make_train_step(cfg, model, opt, device=device)
+
+
+def pair_batches(cfg, pairs, seeds, device=None):
+    from jmodt_torch.data.synthetic import make_pair_batch
+    from jmodt_torch.train.train_step import to_device
+    out = [make_pair_batch(seed, cfg, num_pairs=pairs) for seed in seeds]
+    if device is not None:
+        out = [to_device(b, torch.device(device)) for b in out]
+    return out
+
+
+def check_counts(counts, per_step, what):
+    for name, per in per_step.items():
+        check(counts.get(name, 0) == per, f'{what}: {name} launched '
+              f'{counts.get(name, 0)} times in a step, expected {per}')
+
+
+def timed_step(step, batch, proposal_share=False):
+    """(tb, CUDA-event ms, wall ms, ms inside proposal_layer or None) of one
+    train step; with `proposal_share` the proposal layer is synchronized
+    before and after, and its time summed."""
+    import jmodt_torch.models.point_rcnn as point_rcnn
+    inside = []
+    orig = point_rcnn.proposal_layer
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*args)
+        torch.cuda.synchronize()
+        inside.append(time.perf_counter() - t)
+        return out
+
+    if proposal_share:
+        point_rcnn.proposal_layer = timed
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        tb = step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        point_rcnn.proposal_layer = orig
+    return (tb, start.elapsed_time(end), wall,
+            sum(inside) * 1e3 if proposal_share else None)
+
+
+def run_finetune(cfg):
+    """Phase 11: TRAIN_STEPS finetune steps of TRAIN_PAIRS pairs, kernel
+    inputs recorded on step 1 and held against the plain versions."""
+    from jmodt_torch.ops import kernels
+    from jmodt_torch.train.train_step import scalars
+    model, _, step = train_parts(cfg)
+    batches = pair_batches(cfg, TRAIN_PAIRS, range(TRAIN_STEPS), 'cuda')
+    trains = lambda k: 'link_layer' in k or 'se_layer' in k   # noqa: E731
+    ms, wall, losses = [], [], []
+    agg = share = peak = None
+    for i, batch in enumerate(batches):
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        kernels.launches.clear()
+        if i == 0:
+            recorded, tb = record_kernel_inputs(lambda: step(batch))
+        else:
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            tb, ev_ms, wall_ms, prop_ms = timed_step(step, batch, i == 2)
+            ms.append(ev_ms)
+            wall.append(wall_ms)
+            if prop_ms is not None:
+                share = prop_ms / wall_ms
+        check_counts(dict(kernels.launches), PER_STEP_FINETUNE,
+                     f'finetune step {i + 1}')
+        vals = scalars(tb)
+        check(all(np.isfinite(v) for v in vals.values()),
+              f'finetune step {i + 1}: non-finite loss terms {vals}')
+        losses.append(vals)
+        after = model.state_dict()
+        for k, v in before.items():
+            if not trains(k):
+                check(torch.equal(after[k], v), f'finetune step {i + 1}: '
+                      f'frozen {k} changed')
+            elif k.endswith('weight'):
+                check(not torch.equal(after[k], v),
+                      f'finetune step {i + 1}: {k} did not move')
+        if i == 0:
+            agg = check_kernels(recorded, {k: v for k, v in
+                                           PER_STEP_FINETUNE.items() if v})
+        if i == 1:
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return dict(ms=ms, wall=wall, share=share, peak_gib=peak,
+                losses=losses, agg=agg)
+
+
+def train_parity(cfg32):
+    """Phase 11, second half: one float32 finetune step on 1 pair on the
+    card and on the CPU with the same draws."""
+    import jmodt_torch.models.point_rcnn as point_rcnn
+    from jmodt_torch.train.train_step import scalars
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = pair_batches(cfg32, 1, (100,))[0]
+    res = {}
+    orig = point_rcnn.proposal_target_layer
+    for dev in ('cuda', 'cpu'):
+        _, _, step = train_parts(cfg32, device=dev)
+        seen = []
+
+        def spy(*args):
+            seen.append(orig(*args))
+            return seen[-1]
+
+        point_rcnn.proposal_target_layer = spy
+        try:
+            tb = step(batch)
+        finally:
+            point_rcnn.proposal_target_layer = orig
+        res[dev] = (scalars(tb), seen[0]._replace(
+            **{f: getattr(seen[0], f).detach().cpu()
+               for f in seen[0]._fields}))
+    (gtb, gt), (ctb, ct) = res['cuda'], res['cpu']
+    errs = {k: abs(gtb[k] - v) / max(1.0, abs(v)) for k, v in ctb.items()
+            if k != 'grad_norm'}
+    for k, e in errs.items():
+        check(e <= NET_TOL, f'train parity: {k} err {e} (card {gtb[k]}, '
+              f'CPU {ctb[k]})')
+    rc = cfg32.RCNN
+    thresholds = torch.tensor([rc.REG_FG_THRESH, rc.CLS_FG_THRESH,
+                               rc.CLS_BG_THRESH])
+    edge = ((ct.gt_iou[:, None] - thresholds).abs() < IOU_EDGE).any(1)
+    differ = ((gt.cls_label != ct.cls_label)
+              | (gt.reg_valid_mask != ct.reg_valid_mask))
+    check(not bool((differ & ~edge).any()), 'train parity: cls_label / '
+          f'reg_valid_mask differ at RoIs {torch.nonzero(differ & ~edge)}')
+    near = [(int(i), float(ct.gt_iou[i]), float(gt.gt_iou[i]))
+            for i in torch.nonzero(edge).flatten()]
+    return errs, (gtb['grad_norm'], ctb['grad_norm']), near, int(
+        differ.sum())
+
+
+def run_full(cfg):
+    """Phase 12: full-losses steps on 1 pair; launches, gradients, one
+    BatchNorm layer's statistics, ms a step."""
+    from jmodt_torch.ops import depth_to_space as d2s
+    from jmodt_torch.ops import kernels
+    from jmodt_torch.train.train_step import scalars
+    model, _, step = train_parts(cfg)
+    batches = pair_batches(cfg, 1, (200, 201), 'cuda')
+    bn = model.rpn.backbone.fp_0.PointwiseMLP_0.PointwiseLayer_0.BatchNorm_0
+    seen = []
+    hook = bn.register_forward_hook(
+        lambda m, i, o: seen.append(i[0].detach().clone()))
+    old = (bn.running_mean.clone().double(), bn.running_var.clone().double())
+    backward = d2s.DepthToSpace.backward
+    k6_back = []
+
+    def counted(ctx, grad):
+        k6_back.append(1)
+        return backward(ctx, grad)
+
+    d2s.DepthToSpace.backward = staticmethod(counted)
+    kernels.launches.clear()
+    try:
+        tb = step(batches[0])
+        torch.cuda.synchronize()
+    finally:
+        d2s.DepthToSpace.backward = backward
+        hook.remove()
+    counts = dict(kernels.launches)
+    check_counts(counts, PER_STEP_FULL, 'full-losses step')
+    check(len(k6_back) == K6_BACKWARD_FULL,
+          f'full-losses step: K6 backward ran {len(k6_back)} times')
+    vals = scalars(tb)
+    check(all(np.isfinite(v) for v in vals.values()),
+          f'full-losses step: non-finite loss terms {vals}')
+    n_params = 0
+    for name, p in model.named_parameters():
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+              f'full-losses step: no finite gradient for {name}')
+        n_params += 1
+    # flax's rule: float32 statistics over every leading axis, the biased
+    # one-pass variance clipped at 0, running = 0.9 old + 0.1 batch
+    check(len(seen) == 1, f'full-losses step: the BatchNorm ran {len(seen)} '
+          'times')
+    x = seen[0].double().reshape(-1, seen[0].shape[-1])
+    mean = x.mean(0)
+    var = ((x * x).mean(0) - mean * mean).clamp_min(0)
+    bn_err = (scale_err(bn.running_mean, 0.9 * old[0] + 0.1 * mean),
+              scale_err(bn.running_var, 0.9 * old[1] + 0.1 * var))
+    check(max(bn_err) <= 1e-5, f'full-losses step: BatchNorm statistics err '
+          f'{bn_err}')
+    kernels.launches.clear()
+    tb2, ev_ms, wall_ms, _ = timed_step(step, batches[1])
+    check_counts(dict(kernels.launches), PER_STEP_FULL, 'full-losses step 2')
+    return dict(counts=counts, k6_backward=len(k6_back), params=n_params,
+                bn_err=bn_err, ms=ev_ms, wall=wall_ms,
+                losses=[vals, scalars(tb2)])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1121,15 +1390,61 @@ def main() -> int:
           f'largest {ulp[0]:.3g} ({ulp[1]}), {ulp[2]} over {GRAD_TOL:g} '
           f'({time.perf_counter() - t0:.1f} s)', flush=True)
 
+    cfg_ft = train_cfg(True, 'bfloat16')
+    print(f'[11 finetune] inputs recorded from training step 1 ('
+          f'{TRAIN_PAIRS} pairs); kernel vs plain version:', flush=True)
+    t0 = time.perf_counter()
+    ft = run_finetune(cfg_ft)
+    print(f'[11 finetune] Config() link / se finetune (bfloat16), '
+          f'{TRAIN_PAIRS} pairs a step, {TRAIN_STEPS} steps: launches a step '
+          f'{PER_STEP_FINETUNE}; frozen parameters and RPN buffers bit-equal,'
+          ' link / se weights moved; steps 2-3 '
+          + ', '.join(f'{m:.2f}' for m in ft['ms']) + ' ms (CUDA events), '
+          + ', '.join(f'{m:.2f}' for m in ft['wall']) + ' ms (wall); peak '
+          f'memory {ft["peak_gib"]:.2f} GiB; proposal layer '
+          f'{100 * ft["share"]:.1f}% of step 3; losses step 1 '
+          + json.dumps({k: round(v, 5) for k, v in ft['losses'][0].items()})
+          + f' ({time.perf_counter() - t0:.1f} s)', flush=True)
+    cfg32 = train_cfg(True, 'float32')
+    # with random weights no RoI reaches REID.FG_THRESH, so the finetune
+    # loss is 0; the second run keeps every RoI's track id (threshold 0),
+    # so the link / se terms and the gradient are compared too
+    for what, c in (('Config()', cfg32),
+                    ('REID.FG_THRESH 0', dataclasses.replace(
+                        cfg32, REID=dataclasses.replace(cfg32.REID,
+                                                        FG_THRESH=0.0)))):
+        t0 = time.perf_counter()
+        perrs, gnorms, near, ndiff = train_parity(c)
+        print(f'[11 parity] float32 finetune step ({what}), 1 pair, card vs '
+              'CPU: loss terms ' + ', '.join(f'{k} {v:.3g}' for k, v in
+                                             perrs.items())
+              + f'; grad_norm card {gnorms[0]:.6g} CPU {gnorms[1]:.6g}; '
+              f'{ndiff} RoI labels differ, all within {IOU_EDGE:g} of a '
+              f'threshold; RoIs near a threshold (index, CPU IoU, card '
+              f'IoU): {near} ({time.perf_counter() - t0:.1f} s)', flush=True)
+    t0 = time.perf_counter()
+    full = run_full(train_cfg(False, 'bfloat16'))
+    print(f'[12 full] full losses (bfloat16), 1 pair: launches a step '
+          f'{full["counts"]}, K6 backward {full["k6_backward"]} times; '
+          f'{full["params"]} parameter gradients present and finite; '
+          f'BatchNorm statistics vs flax\'s rule err {full["bn_err"][0]:.3g} '
+          f'/ {full["bn_err"][1]:.3g}; step 2 {full["ms"]:.2f} ms (CUDA '
+          f'events), {full["wall"]:.2f} ms (wall); losses '
+          + json.dumps({k: round(v, 5) for k, v in full['losses'][0].items()})
+          + f' ({time.perf_counter() - t0:.1f} s)', flush=True)
+
     rows = []
     for k in KERNELS:
         a = agg[k['name']]
         rows.append({
             'name': k['name'], 'route': 'cuda', 'source': k['source'],
             'replaces': k['replaces'], 'launches': jcounts[k['counter']],
-            'launches_by_path': {'detection': counts.get(k['counter'], 0),
-                                 'joint': jcounts[k['counter']],
-                                 'batched': bcounts[k['counter']]},
+            'launches_by_path': {
+                'detection': counts.get(k['counter'], 0),
+                'joint': jcounts[k['counter']],
+                'batched': bcounts[k['counter']],
+                'train_finetune_step': PER_STEP_FINETUNE[k['counter']],
+                'train_full_step': full['counts'].get(k['counter'], 0)},
             'max_abs_err': a['max_abs_err'], 'ms': a['ms'],
             'plain_ms': a['plain_ms'],
             'bound_ms': max(a['t_ops'], a['t_bytes']) * 1e3,
@@ -1151,6 +1466,12 @@ def main() -> int:
             row['us_per_step_level0'] = a['per_call'][0]['us_per_step']
         if a['per_call']:
             row['per_call'] = a['per_call']
+        tr = ft['agg'].get(k['name'])
+        if tr is not None and tr['per_call']:
+            row['per_call_train'] = tr['per_call']
+            row['ms_train_step'] = tr['ms']
+        if k['name'] == 'depth_to_space':
+            row['backward_launches_train_full_step'] = full['k6_backward']
         if 'default_ms' in a:
             row['default_path_ms'] = a['default_ms']
             row['fps_floor_ms'] = a['fps_floor_ms']

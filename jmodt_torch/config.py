@@ -360,3 +360,38 @@ def config_from_overrides(base: Config, kv_list: Sequence[str]) -> Config:
         node[parts[-1]] = value
         cfg = _merge(cfg, tree)
     return cfg
+
+
+def small_config() -> Config:
+    """The miniature config of the repo's smoke runs and CPU tests
+    (`__graft_entry__._small_config`, which builds the JAX package's):
+    every structural ratio kept, widths and counts cut."""
+    sa = SAConfig(NPOINTS=(64, 32, 16, 8),
+                  RADIUS=((0.1, 0.5), (0.5, 1.0), (1.0, 2.0), (2.0, 4.0)),
+                  NSAMPLE=((4, 8), (4, 8), (4, 8), (4, 8)),
+                  MLPS=(((8, 8, 16), (8, 8, 16)),
+                        ((16, 16, 32), (16, 16, 32)),
+                        ((32, 32, 64), (32, 32, 64)),
+                        ((64, 64, 128), (64, 64, 128))))
+    li = LIFusionConfig(ENABLED=True, IMG_FEATURES_CHANNEL=32,
+                        IMG_CHANNELS=(3, 8, 16, 32, 64),
+                        POINT_CHANNELS=(32, 64, 128, 256),
+                        DeConv_Reduce=(4, 4, 4, 4))
+    rpn = RPNConfig(NUM_POINTS=256, FIXED=False, SA_CONFIG=sa,
+                    FP_MLPS=((32, 32), (64, 64), (128, 128), (128, 128)),
+                    CLS_FC=(32,), REG_FC=(32,))
+    rcnn_sa = RCNNSAConfig(NPOINTS=(16, 8, -1), RADIUS=(0.2, 0.4, 100.0),
+                           NSAMPLE=(8, 8, 8),
+                           MLPS=((32, 32, 32), (32, 32, 64), (64, 64, 128)))
+    rcnn = RCNNConfig(NUM_POINTS=32, SA_CONFIG=rcnn_sa, XYZ_UP_LAYER=(32, 32),
+                      CLS_FC=(64, 64), REG_FC=(64, 64), ROI_PER_IMAGE=8)
+    base = Config()
+    return Config(
+        LI_FUSION=li, RPN=rpn, RCNN=rcnn,
+        REID=dataclasses.replace(base.REID, LINK_FC=(64, 64), SE_FC=(64, 64)),
+        TRAIN=TrainConfig(FINETUNE=False, RPN_PRE_NMS_TOP_N=64,
+                          RPN_POST_NMS_TOP_N=16),
+        EVAL=ModeConfig(SPLIT='val', RPN_PRE_NMS_TOP_N=64,
+                        RPN_POST_NMS_TOP_N=16, RPN_NMS_THRESH=0.8),
+        TEST=ModeConfig(SPLIT='test', RPN_PRE_NMS_TOP_N=64,
+                        RPN_POST_NMS_TOP_N=16, RPN_NMS_THRESH=0.8))

@@ -1,10 +1,11 @@
 """Synthetic KITTI-shaped frames for the port.
 
-The port's own copy of `make_scene` / `make_eval_frame` from
-`jmodt_tpu/data/synthetic.py`: the same numpy calls in the same order, so a
-seed gives the same arrays in both packages (test-pinned).  Car-shaped
-point clusters on a ground plane, a pinhole projection for `pts_xy`, and a
-random image.
+The port's own copy of `make_scene`, `make_eval_frame`, `rpn_labels` and
+`make_pair_batch` from `jmodt_tpu/data/synthetic.py`: the same numpy calls
+in the same order, so a seed gives the same arrays in both packages
+(test-pinned).  Car-shaped point clusters on a ground plane, a pinhole
+projection for `pts_xy`, a random image, per-point RPN labels, and (prev,
+next) frame pairs with persistent track ids and small motion for training.
 """
 
 from __future__ import annotations
@@ -49,22 +50,60 @@ def _car_surface_points(box: np.ndarray, n: int,
     return _rotate_y(local, ry) + np.array([x, y, z], np.float32)
 
 
+def _in_box_mask(pts: np.ndarray, box: np.ndarray, extra: float = 0.0
+                 ) -> np.ndarray:
+    x, y, z, h, w, l, ry = box
+    local = _rotate_y(pts - np.array([x, y, z], np.float32), -ry)
+    return ((np.abs(local[:, 0]) <= w / 2 + extra)
+            & (np.abs(local[:, 2]) <= l / 2 + extra)
+            & (local[:, 1] <= extra) & (local[:, 1] >= -h - extra))
+
+
+def rpn_labels(pts: np.ndarray, gt_boxes: np.ndarray, gt_valid: np.ndarray):
+    """Per-point RPN labels: cls 1 inside a gt box, -1 in its 0.2 m
+    enlarged fringe, 0 elsewhere; the reg target of a foreground point is
+    the offset to the box centre (y moved up by h / 2), its size and ry."""
+    n = pts.shape[0]
+    cls_label = np.zeros(n, np.int32)
+    reg_label = np.zeros((n, 7), np.float32)
+    for k in range(gt_boxes.shape[0]):
+        if not gt_valid[k]:
+            continue
+        box = gt_boxes[k]
+        fg = _in_box_mask(pts, box)
+        enlarged = _in_box_mask(pts, box, extra=0.2)
+        cls_label[np.logical_xor(fg, enlarged)] = -1
+        cls_label[fg] = 1
+        center = box[0:3].copy()
+        center[1] -= box[3] / 2
+        reg_label[fg, 0:3] = center - pts[fg]
+        reg_label[fg, 3:6] = box[3:6]
+        reg_label[fg, 6] = box[6]
+    return cls_label, reg_label
+
+
 def make_scene(rng: np.random.RandomState, cfg: Config,
                npoints: Optional[int] = None, max_gt: int = 8,
                num_cars: Optional[int] = None,
+               base_boxes: Optional[np.ndarray] = None,
                img_hw=(IMG_H, IMG_W)) -> Dict[str, np.ndarray]:
     """One frame: points (N, 3), img (H, W, 3), pts_xy (N, 2 in [-1, 1]),
-    gt_boxes3d (max_gt, 7) zero-padded, gt_valid (max_gt,)."""
+    gt_boxes3d (max_gt, 7) zero-padded, gt_valid (max_gt,).  With
+    `base_boxes` the cars are those boxes."""
     n = npoints or cfg.RPN.NUM_POINTS
     ncars = num_cars if num_cars is not None else rng.randint(2, 6)
     mean = np.asarray(cfg.mean_size)
 
-    boxes = np.zeros((ncars, 7), np.float32)
-    boxes[:, 0] = rng.uniform(-15.0, 15.0, ncars)   # x
-    boxes[:, 1] = rng.uniform(1.4, 1.8, ncars)      # y (bottom)
-    boxes[:, 2] = rng.uniform(8.0, 60.0, ncars)     # z
-    boxes[:, 3:6] = mean * rng.uniform(0.9, 1.1, (ncars, 3))
-    boxes[:, 6] = rng.uniform(-np.pi, np.pi, ncars)
+    if base_boxes is None:
+        boxes = np.zeros((ncars, 7), np.float32)
+        boxes[:, 0] = rng.uniform(-15.0, 15.0, ncars)   # x
+        boxes[:, 1] = rng.uniform(1.4, 1.8, ncars)      # y (bottom)
+        boxes[:, 2] = rng.uniform(8.0, 60.0, ncars)     # z
+        boxes[:, 3:6] = mean * rng.uniform(0.9, 1.1, (ncars, 3))
+        boxes[:, 6] = rng.uniform(-np.pi, np.pi, ncars)
+    else:
+        boxes = base_boxes.copy()
+        ncars = boxes.shape[0]
 
     per_car = max(32, int(n * 0.35) // max(ncars, 1))
     chunks = [_car_surface_points(boxes[k], per_car, rng)
@@ -95,6 +134,43 @@ def make_scene(rng: np.random.RandomState, cfg: Config,
     gt_valid[:keep] = True
     return dict(pts=pts, img=img, pts_xy=xy, gt_boxes3d=gt_boxes,
                 gt_valid=gt_valid)
+
+
+def make_pair_batch(seed: int, cfg: Config, num_pairs: int = 1,
+                    npoints: Optional[int] = None, max_gt: int = 8,
+                    img_hw=(IMG_H, IMG_W)) -> Dict[str, np.ndarray]:
+    """A training batch of (prev, next) frame pairs interleaved as rows
+    (2i, 2i + 1): pts_input, img, pts_xy, gt_boxes3d, gt_tids,
+    rpn_cls_label and rpn_reg_label."""
+    rng = np.random.RandomState(seed)
+    frames = []
+    tid_base = 1
+    for _ in range(num_pairs):
+        prev = make_scene(rng, cfg, npoints, max_gt, img_hw=img_hw)
+        ncars = int(prev['gt_valid'].sum())
+        # next frame: the same cars, small constant-velocity motion
+        moved = prev['gt_boxes3d'][:ncars].copy()
+        moved[:, 0] += rng.uniform(-0.5, 0.5, ncars)
+        moved[:, 2] += rng.uniform(-1.5, 0.5, ncars)
+        nxt = make_scene(rng, cfg, npoints, max_gt, base_boxes=moved,
+                         img_hw=img_hw)
+        tids = np.zeros(max_gt, np.float32)
+        tids[:ncars] = np.arange(tid_base, tid_base + ncars)
+        tid_base += ncars
+        for fr in (prev, nxt):
+            fr['gt_tids'] = tids
+            frames.append(fr)
+
+    batch: Dict[str, np.ndarray] = {}
+    for key, name in (('pts_input', 'pts'), ('img', 'img'),
+                      ('pts_xy', 'pts_xy'), ('gt_boxes3d', 'gt_boxes3d'),
+                      ('gt_tids', 'gt_tids')):
+        batch[key] = np.stack([f[name] for f in frames])
+    labels = [rpn_labels(f['pts'], f['gt_boxes3d'], f['gt_valid'])
+              for f in frames]
+    batch['rpn_cls_label'] = np.stack([lab[0] for lab in labels])
+    batch['rpn_reg_label'] = np.stack([lab[1] for lab in labels])
+    return batch
 
 
 def make_eval_frame(seed: int, cfg: Config, npoints: Optional[int] = None,

@@ -23,7 +23,9 @@ def rpn_reg_channels(cfg: Config) -> int:
 class RPN(nn.Module):
     """forward(pts_input (B, N, 3 + C), img (B, H, W, 3) | None, pts_xy
     (B, N, 2) | None) -> dict with rpn_cls (B, N, 1), rpn_reg (B, N, C),
-    backbone_xyz (B, N, 3), backbone_features (B, N, 128)."""
+    backbone_xyz (B, N, 3), backbone_features (B, N, 128).  In training
+    mode its heads drop out with cfg.RPN.DP_RATIO, drawn from forward's
+    `generator`."""
 
     def __init__(self, cfg: Config, use_xyz: bool = True, device=None):
         super().__init__()
@@ -32,14 +34,13 @@ class RPN(nn.Module):
                                      device=device)
         c = backbone_out_channels(cfg)
         dtype = compute_dtype(cfg)
-        self.cls_head = HeadMLP(c, cfg.RPN.CLS_FC, 1, use_bn=cfg.RPN.USE_BN,
-                                dtype=dtype, device=device)
-        self.reg_head = HeadMLP(c, cfg.RPN.REG_FC, rpn_reg_channels(cfg),
-                                use_bn=cfg.RPN.USE_BN, dtype=dtype,
-                                device=device)
+        kw = dict(use_bn=cfg.RPN.USE_BN, dp_ratio=cfg.RPN.DP_RATIO,
+                  dtype=dtype, device=device)
+        self.cls_head = HeadMLP(c, cfg.RPN.CLS_FC, 1, **kw)
+        self.reg_head = HeadMLP(c, cfg.RPN.REG_FC, rpn_reg_channels(cfg), **kw)
 
-    def forward(self, pts_input, img=None, pts_xy=None):
+    def forward(self, pts_input, img=None, pts_xy=None, generator=None):
         xyz, feats = self.backbone(pts_input, img, pts_xy)
-        return {'rpn_cls': self.cls_head(feats),
-                'rpn_reg': self.reg_head(feats),
+        return {'rpn_cls': self.cls_head(feats, generator),
+                'rpn_reg': self.reg_head(feats, generator),
                 'backbone_xyz': xyz, 'backbone_features': feats}

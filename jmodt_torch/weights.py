@@ -1,9 +1,11 @@
-"""Load the JAX package's flax variables into the port.
+"""Move weights between the JAX package's flax variables and the port.
 
 `load_jax_variables(model, variables)` takes the flax tree
 {'params': ..., 'batch_stats': ...} as numpy arrays (or anything
-`np.asarray` reads) and loads it with `strict=True`.  The port's module
-names follow the flax tree, so only the layouts change:
+`np.asarray` reads) and loads it with `strict=True`;
+`export_jax_variables(model)` is its inverse, the port's parameters and
+BatchNorm statistics as that tree of numpy arrays.  The port's module names
+follow the flax tree, so only the layouts change:
 
   * Dense kernel (Cin, Cout)                 -> Linear weight (Cout, Cin)
   * Conv kernel HWIO (kH, kW, Cin, Cout)     -> Conv2d weight OIHW
@@ -69,3 +71,46 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any],
     model.to(dev)
     model.load_state_dict(jax_variables_to_state_dict(variables), strict=True)
     return model
+
+
+def _flax_leaf(module: str, name: str, value: np.ndarray) -> tuple:
+    """(collection, flax leaf name, flax layout) of one state_dict leaf:
+    the inverse of `_leaf`."""
+    if module.startswith('BatchNorm_'):
+        return {'weight': ('params', 'scale'), 'bias': ('params', 'bias'),
+                'running_mean': ('batch_stats', 'mean'),
+                'running_var': ('batch_stats', 'var')}[name] + (value,)
+    if name == 'bias':
+        return 'params', 'bias', value
+    if module.startswith('Dense_'):
+        return 'params', 'kernel', value.T
+    if module.startswith('Conv_'):
+        return 'params', 'kernel', np.transpose(value, (2, 3, 1, 0))
+    if module.startswith('NonOverlapDeconv_'):
+        return ('params', 'kernel',
+                np.transpose(value, (2, 3, 0, 1))[::-1, ::-1])
+    raise ValueError(f'unexpected leaf {module}.{name}')
+
+
+def state_dict_to_jax_variables(state_dict: Mapping[str, torch.Tensor]
+                                ) -> Dict[str, Any]:
+    """A port state_dict as the flax tree {'params': ..., 'batch_stats':
+    ...} of float32 numpy arrays."""
+    out: Dict[str, Any] = {'params': {}, 'batch_stats': {}}
+    for key, t in state_dict.items():
+        *path, name = key.split('.')
+        coll, leaf, arr = _flax_leaf(
+            path[-1], name, t.detach().cpu().float().numpy())
+        node = out[coll]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    if not out['batch_stats']:
+        del out['batch_stats']
+    return out
+
+
+def export_jax_variables(model: torch.nn.Module) -> Dict[str, Any]:
+    """The inverse of `load_jax_variables`: `model`'s parameters and
+    BatchNorm statistics as a flax-layout numpy tree."""
+    return state_dict_to_jax_variables(model.state_dict())

@@ -117,6 +117,26 @@ def test_lockstep_and_scan_need_a_card_unless_asked(monkeypatch):
                                  ).state.tid.device.type == 'cpu'
 
 
+def test_training_needs_a_card_unless_asked(monkeypatch, tmp_path):
+    from jmodt_torch.train import __main__ as train_main
+    from jmodt_torch.train import train_step, trainer
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    cfg = _small_cfg()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        point_rcnn.build_detector(cfg, mode='TRAIN')
+    model = point_rcnn.build_detector(cfg, mode='TRAIN', device='cpu')
+    opt = train_step.make_optimizer(cfg, model, 4)
+    for make in (lambda: train_step.make_train_step(cfg, model, opt),
+                 lambda: train_step.make_val_step(cfg, model),
+                 lambda: trainer.Trainer(cfg, model, opt, str(tmp_path))):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            make()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        train_main.main(['--small', '--output_dir', str(tmp_path)])
+    train_step.make_train_step(cfg, model, opt, device='cpu')
+    trainer.Trainer(cfg, model, opt, str(tmp_path), device='cpu')
+
+
 def test_build_detector_is_seeded():
     cfg = _small_cfg()
     a = point_rcnn.build_detector(cfg, device='cpu', seed=3).state_dict()
