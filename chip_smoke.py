@@ -92,26 +92,29 @@ Phases, in order; any failure exits non-zero:
             RPN frozen, in eval mode under no_grad; the link / se heads
             trained), bfloat16, 4 frame pairs (8 frames) a step at full
             width, detector weights from seed 0 and link / se weights from
-            seed 1: 3 steps with the launch counts set to 0 before each;
-            every kernel must launch its per-step count on every step.  The
-            inputs of every kernel call are recorded on step 1 and held
-            against its plain version with phase 2's tolerances (K1 at B =
-            8, K2 over 512 RoI clouds; plans printed, times and bounds in
-            the kernel line).  The loss terms must be finite, every frozen
-            parameter and every RPN BatchNorm buffer bit-equal to its value
-            before the step, and every link / se weight moved.  Prints ms a
-            step (CUDA events and the wall clock, steps 2-3), the peak
-            memory and the share of step 3 spent in the proposal layer
-            (synchronized around it).  Then one float32 step on 1 pair on
-            the card and on the CPU, TF32 off, the same RoI draws: loss
-            terms within 1e-3 of their scale, the sampled RoIs' cls_label
-            and reg_valid_mask equal except where the RoI's IoU lies within
-            1e-4 of a threshold (those are printed).  With random weights
-            no RoI reaches REID.FG_THRESH (0.85), so the finetune loss and
-            its gradient are 0 and the link / se weights move by their
-            decay alone; the parity step runs once more with REID.FG_THRESH
-            0, where every RoI keeps its gt's track id and the link / se
-            terms are not 0.
+            seed 1.  With random weights no RoI reaches REID.FG_THRESH
+            (0.85), so Config()'s finetune loss and gradient are 0; these
+            steps run with REID.FG_THRESH 0, where every RoI keeps its gt's
+            track id and the link / se terms are not 0.  3 steps with the
+            launch counts set to 0 before each; every kernel must launch
+            its per-step count on every step (the last step's counts go in
+            the kernel line).  The inputs of every kernel call are recorded
+            on step 1 and held against its plain version with phase 2's
+            tolerances (K1 at B = 8, K2 over 512 RoI clouds; plans printed,
+            times and bounds in the kernel line).  The loss terms must be
+            finite, the loss, grad_norm and every link / se weight's
+            gradient nonzero, every frozen parameter and every RPN
+            BatchNorm buffer bit-equal to its value before the step, and
+            every link / se weight moved.  Prints ms a step (CUDA events
+            and the wall clock, steps 2-3), the peak memory and the share of
+            step 3 spent in the proposal layer (synchronized around it).
+            Then one float32 step on 1 pair on the card and on the CPU, TF32
+            off, the same RoI draws, with Config() and again with
+            REID.FG_THRESH 0: loss terms and grad_norm within 1e-3 of their
+            scale, every link / se gradient within 1e-3 of its own scale
+            (exactly 0 where the CPU's is), the sampled RoIs' cls_label and
+            reg_valid_mask equal except where the RoI's IoU lies within
+            1e-4 of a threshold (those are printed).
 12. full     the full-losses training step (RPN.FIXED and TRAIN.FINETUNE
             off: train-mode BatchNorm, dropout 0.5 in the RPN heads),
             bfloat16, 1 pair at full width: per-step launch counts (K4 and
@@ -1071,14 +1074,24 @@ def over(errs, tol=GRAD_TOL):
 
 # ------------------------------------------------------------ phases 11, 12
 
-def train_cfg(finetune: bool, dtype: str):
+def train_cfg(finetune: bool, dtype: str, reid_fg_thresh=None):
     """Config() for the link / se finetune (the default, as tools/train.py
-    builds it) or for full losses (its --finetune flag)."""
+    builds it) or for full losses (its --finetune flag).  With random
+    weights no RoI reaches REID.FG_THRESH, so the finetune loss and its
+    gradient are 0; `reid_fg_thresh` 0 keeps every RoI's track id, so
+    that the link / se terms have a gradient."""
     from jmodt_torch.config import Config
     cfg = Config()
     R = dataclasses.replace
-    return R(cfg, DTYPE=dtype, RPN=R(cfg.RPN, FIXED=finetune),
+    reid = (cfg.REID if reid_fg_thresh is None
+            else R(cfg.REID, FG_THRESH=reid_fg_thresh))
+    return R(cfg, DTYPE=dtype, RPN=R(cfg.RPN, FIXED=finetune), REID=reid,
              TRAIN=R(cfg.TRAIN, FINETUNE=finetune))
+
+
+def trains(name: str) -> bool:
+    """A parameter the finetune trains."""
+    return 'link_layer' in name or 'se_layer' in name
 
 
 def train_parts(cfg, device=None):
@@ -1145,14 +1158,14 @@ def timed_step(step, batch, proposal_share=False):
 
 def run_finetune(cfg):
     """Phase 11: TRAIN_STEPS finetune steps of TRAIN_PAIRS pairs, kernel
-    inputs recorded on step 1 and held against the plain versions."""
+    inputs recorded on step 1 and held against the plain versions; the
+    launch counts of the last step are returned."""
     from jmodt_torch.ops import kernels
     from jmodt_torch.train.train_step import scalars
     model, _, step = train_parts(cfg)
     batches = pair_batches(cfg, TRAIN_PAIRS, range(TRAIN_STEPS), 'cuda')
-    trains = lambda k: 'link_layer' in k or 'se_layer' in k   # noqa: E731
     ms, wall, losses = [], [], []
-    agg = share = peak = None
+    agg = share = peak = counts = None
     for i, batch in enumerate(batches):
         before = {k: v.clone() for k, v in model.state_dict().items()}
         kernels.launches.clear()
@@ -1166,11 +1179,18 @@ def run_finetune(cfg):
             wall.append(wall_ms)
             if prop_ms is not None:
                 share = prop_ms / wall_ms
-        check_counts(dict(kernels.launches), PER_STEP_FINETUNE,
-                     f'finetune step {i + 1}')
+        counts = dict(kernels.launches)
+        check_counts(counts, PER_STEP_FINETUNE, f'finetune step {i + 1}')
         vals = scalars(tb)
         check(all(np.isfinite(v) for v in vals.values()),
               f'finetune step {i + 1}: non-finite loss terms {vals}')
+        check(vals['loss'] > 0 and vals['grad_norm'] > 0,
+              f'finetune step {i + 1}: loss {vals["loss"]}, grad_norm '
+              f'{vals["grad_norm"]}')
+        for k, p in model.named_parameters():
+            if trains(k) and k.endswith('weight'):
+                check(p.grad is not None and bool(p.grad.any()),
+                      f'finetune step {i + 1}: {k} has no gradient')
         losses.append(vals)
         after = model.state_dict()
         for k, v in before.items():
@@ -1186,12 +1206,14 @@ def run_finetune(cfg):
         if i == 1:
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
     return dict(ms=ms, wall=wall, share=share, peak_gib=peak,
-                losses=losses, agg=agg)
+                losses=losses, agg=agg, counts=counts)
 
 
 def train_parity(cfg32):
     """Phase 11, second half: one float32 finetune step on 1 pair on the
-    card and on the CPU with the same draws."""
+    card and on the CPU with the same draws: loss terms, grad_norm and
+    each link / se gradient within NET_TOL (the gradients of their own
+    scale), RoI labels equal away from a threshold."""
     import jmodt_torch.models.point_rcnn as point_rcnn
     from jmodt_torch.train.train_step import scalars
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1200,7 +1222,7 @@ def train_parity(cfg32):
     res = {}
     orig = point_rcnn.proposal_target_layer
     for dev in ('cuda', 'cpu'):
-        _, _, step = train_parts(cfg32, device=dev)
+        model, _, step = train_parts(cfg32, device=dev)
         seen = []
 
         def spy(*args):
@@ -1214,13 +1236,25 @@ def train_parity(cfg32):
             point_rcnn.proposal_target_layer = orig
         res[dev] = (scalars(tb), seen[0]._replace(
             **{f: getattr(seen[0], f).detach().cpu()
-               for f in seen[0]._fields}))
-    (gtb, gt), (ctb, ct) = res['cuda'], res['cpu']
+               for f in seen[0]._fields}),
+            {k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+             for k, p in model.named_parameters() if trains(k)})
+    (gtb, gt, ggrad), (ctb, ct, cgrad) = res['cuda'], res['cpu']
     errs = {k: abs(gtb[k] - v) / max(1.0, abs(v)) for k, v in ctb.items()
             if k != 'grad_norm'}
+    errs['grad_norm'] = (abs(gtb['grad_norm'] - ctb['grad_norm'])
+                         / max(abs(ctb['grad_norm']), 1e-30))
     for k, e in errs.items():
         check(e <= NET_TOL, f'train parity: {k} err {e} (card {gtb[k]}, '
               f'CPU {ctb[k]})')
+    gerr = {}
+    for k, want in cgrad.items():
+        scale = float(want.abs().max())
+        diff = float((ggrad[k] - want).abs().max())
+        gerr[k] = diff / scale if scale else diff
+        check(gerr[k] <= NET_TOL if scale else diff == 0, f'train parity: '
+              f'{k} gradient err {diff} (scale {scale})')
+    errs['link_se_grad'] = max(gerr.values())
     rc = cfg32.RCNN
     thresholds = torch.tensor([rc.REG_FG_THRESH, rc.CLS_FG_THRESH,
                                rc.CLS_BG_THRESH])
@@ -1390,35 +1424,33 @@ def main() -> int:
           f'largest {ulp[0]:.3g} ({ulp[1]}), {ulp[2]} over {GRAD_TOL:g} '
           f'({time.perf_counter() - t0:.1f} s)', flush=True)
 
-    cfg_ft = train_cfg(True, 'bfloat16')
+    cfg_ft = train_cfg(True, 'bfloat16', reid_fg_thresh=0.0)
     print(f'[11 finetune] inputs recorded from training step 1 ('
           f'{TRAIN_PAIRS} pairs); kernel vs plain version:', flush=True)
     t0 = time.perf_counter()
     ft = run_finetune(cfg_ft)
-    print(f'[11 finetune] Config() link / se finetune (bfloat16), '
-          f'{TRAIN_PAIRS} pairs a step, {TRAIN_STEPS} steps: launches a step '
-          f'{PER_STEP_FINETUNE}; frozen parameters and RPN buffers bit-equal,'
-          ' link / se weights moved; steps 2-3 '
+    print(f'[11 finetune] Config() link / se finetune with REID.FG_THRESH 0'
+          f' (bfloat16), {TRAIN_PAIRS} pairs a step, {TRAIN_STEPS} steps: '
+          f'launches step {TRAIN_STEPS} {ft["counts"]}; loss and every link / '
+          'se weight gradient nonzero; frozen parameters and RPN buffers '
+          'bit-equal, link / se weights moved; steps 2-3 '
           + ', '.join(f'{m:.2f}' for m in ft['ms']) + ' ms (CUDA events), '
           + ', '.join(f'{m:.2f}' for m in ft['wall']) + ' ms (wall); peak '
           f'memory {ft["peak_gib"]:.2f} GiB; proposal layer '
           f'{100 * ft["share"]:.1f}% of step 3; losses step 1 '
           + json.dumps({k: round(v, 5) for k, v in ft['losses'][0].items()})
           + f' ({time.perf_counter() - t0:.1f} s)', flush=True)
-    cfg32 = train_cfg(True, 'float32')
-    # with random weights no RoI reaches REID.FG_THRESH, so the finetune
-    # loss is 0; the second run keeps every RoI's track id (threshold 0),
-    # so the link / se terms and the gradient are compared too
-    for what, c in (('Config()', cfg32),
-                    ('REID.FG_THRESH 0', dataclasses.replace(
-                        cfg32, REID=dataclasses.replace(cfg32.REID,
-                                                        FG_THRESH=0.0)))):
+    # Config()'s finetune loss is 0 with random weights (train_cfg); the
+    # second run compares the link / se terms and gradients too
+    for what, c in (('Config()', train_cfg(True, 'float32')),
+                    ('REID.FG_THRESH 0', train_cfg(True, 'float32', 0.0))):
         t0 = time.perf_counter()
         perrs, gnorms, near, ndiff = train_parity(c)
         print(f'[11 parity] float32 finetune step ({what}), 1 pair, card vs '
               'CPU: loss terms ' + ', '.join(f'{k} {v:.3g}' for k, v in
                                              perrs.items())
-              + f'; grad_norm card {gnorms[0]:.6g} CPU {gnorms[1]:.6g}; '
+              + f' (link_se_grad: the largest, of its own scale); grad_norm '
+              f'card {gnorms[0]:.6g} CPU {gnorms[1]:.6g}; '
               f'{ndiff} RoI labels differ, all within {IOU_EDGE:g} of a '
               f'threshold; RoIs near a threshold (index, CPU IoU, card '
               f'IoU): {near} ({time.perf_counter() - t0:.1f} s)', flush=True)
@@ -1443,7 +1475,7 @@ def main() -> int:
                 'detection': counts.get(k['counter'], 0),
                 'joint': jcounts[k['counter']],
                 'batched': bcounts[k['counter']],
-                'train_finetune_step': PER_STEP_FINETUNE[k['counter']],
+                'train_finetune_step': ft['counts'].get(k['counter'], 0),
                 'train_full_step': full['counts'].get(k['counter'], 0)},
             'max_abs_err': a['max_abs_err'], 'ms': a['ms'],
             'plain_ms': a['plain_ms'],

@@ -106,9 +106,8 @@ def main(argv=None) -> None:
 
     ckpt_dir = os.path.join(args.output_dir, 'ckpt')
     trainer = Trainer(cfg, model, optimizer, ckpt_dir, log=logger,
-                      log_every=args.log_every, seed=args.seed,
-                      device=device)
-    trainer.ckpt_every = max(args.ckpt_every, 1)
+                      log_every=args.log_every, ckpt_every=args.ckpt_every,
+                      seed=args.seed, device=device)
     logger.info('*************** Start training ***************')
     trainer.train(it, start_epoch, cfg.TRAIN.EPOCHS, train_loader_fn,
                   val_loader_fn)

@@ -3,8 +3,8 @@
 
 One `.pth` file holds {'epoch', 'it', 'model_state' (the model's
 state_dict), 'optimizer_state' (`Optimizer.state_dict()` or None)}.
-Loading is strict, or partial as the JAX package's `load_part_ckpt`: every
-saved tensor whose name and shape match is restored, the rest of the model
+Loading is strict, or partial (`strict=False`) as the JAX package's
+`load_part_ckpt`: every saved tensor whose name and shape match is restored, the rest of the model
 keeps its values, and nothing matching raises.  A partial load is what lets
 a detection-only checkpoint start the link / se finetune.
 """
@@ -72,10 +72,3 @@ def load_checkpoint(filename: str, model: torch.nn.Module,
     it = state['it'] if state.get('it') is not None else 0
     return int(it), int(epoch)
 
-
-def load_part_ckpt(filename: str, model: torch.nn.Module,
-                   log: Optional[logging.Logger] = None) -> torch.nn.Module:
-    """Weights-only partial load: restore every matching tensor, keep the
-    rest, raise if nothing matched."""
-    load_checkpoint(filename, model, strict=False, log=log)
-    return model

@@ -241,10 +241,11 @@ class Optimizer:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.params]
         if grads:
-            gnorm = float(global_norm(grads))
-            if not gnorm < t.GRAD_NORM_CLIP:
-                grads = torch._foreach_div(grads, gnorm)
-                torch._foreach_mul_(grads, t.GRAD_NORM_CLIP)
+            # on the device, no host read: min(1, c / |g|) is exactly 1
+            # below the clip, and inf (so 1) at |g| = 0
+            scale = torch.clamp(t.GRAD_NORM_CLIP / global_norm(grads),
+                                max=1.0)
+            grads = torch._foreach_mul(grads, scale)
             torch._foreach_mul_(self.mu, self.B1)
             torch._foreach_add_(self.mu, grads, alpha=1 - self.B1)
             torch._foreach_mul_(self.nu, self.B2)

@@ -4,15 +4,14 @@ Per-epoch train and optional val epochs, a checkpoint every `ckpt_every`
 epochs (the last epoch always), a best-model snapshot by val loss, and the
 early stop when the train loss falls while the val loss rises for more
 than `stop_thres` epochs in a row.  The loss is read to the host only every
-`log_every` steps.  With `prefetch`, the next batch is copied to the device
-from pinned memory without blocking while the current step runs.  One
-device; no mesh.
+`log_every` steps.  The next batch is copied to the device from pinned
+memory without blocking while the current step runs.  One device; no
+mesh.
 """
 
 from __future__ import annotations
 
 import logging
-import math
 import os
 import time
 from typing import Callable, Iterable, Optional
@@ -35,21 +34,17 @@ class Trainer:
     """
 
     def __init__(self, cfg: Config, model: torch.nn.Module,
-                 optimizer: Optimizer, ckpt_dir: str, tb_log=None,
-                 eval_frequency: int = 1, log: Optional[logging.Logger] = None,
-                 log_every: int = 1, prefetch: bool = True, seed: int = 0,
-                 device=None):
+                 optimizer: Optimizer, ckpt_dir: str,
+                 log: Optional[logging.Logger] = None, log_every: int = 1,
+                 ckpt_every: int = 1, seed: int = 0, device=None):
         self.cfg = cfg
         self.model = model
         self.optimizer = optimizer
         self.device = resolve_device(device)
         self.ckpt_dir = ckpt_dir
-        self.tb_log = tb_log
-        self.eval_frequency = max(eval_frequency, 1)
         self.log = log or logger
         self.log_every = max(int(log_every), 1)
-        self.prefetch = prefetch
-        self.ckpt_every = 1
+        self.ckpt_every = max(int(ckpt_every), 1)
         self._train_step = make_train_step(cfg, model, optimizer, seed,
                                            self.device)
         self._val_step = make_val_step(cfg, model, seed, self.device)
@@ -57,10 +52,6 @@ class Trainer:
     def _batches(self, iterable):
         """The batches on the device, each copy issued before the previous
         batch's step runs."""
-        if not self.prefetch:
-            for batch in iterable:
-                yield to_device(batch, self.device)
-            return
         nxt = None
         for batch in iterable:
             cur, nxt = nxt, to_device(batch, self.device, non_blocking=True)
@@ -69,25 +60,15 @@ class Trainer:
         if nxt is not None:
             yield nxt
 
-    def eval_epoch(self, val_loader: Iterable) -> tuple:
-        """(mean positive val loss, {term: mean over the batches})."""
-        sums: dict = {}
-        nans: dict = {}
+    def eval_epoch(self, val_loader: Iterable) -> float:
+        """The mean of the positive val losses (0 when there is none)."""
         total = []
-        n = 0
         for batch in self._batches(val_loader):
-            n += 1
             _, tb = self._val_step(batch)
-            vals = scalars(tb)
-            if vals['loss'] > 0:
-                total.append(vals['loss'])
-            for k, v in vals.items():
-                if math.isnan(v):
-                    nans[k] = nans.get(k, 0) + 1
-                else:
-                    sums[k] = sums.get(k, 0.0) + v
-        means = {k: v / max(n - nans.get(k, 0), 1) for k, v in sums.items()}
-        return (sum(total) / len(total) if total else 0.0), means
+            loss = float(tb['loss'])
+            if loss > 0:
+                total.append(loss)
+        return sum(total) / len(total) if total else 0.0
 
     def _save(self, name: str, with_optimizer: bool, epoch=None, it=None):
         save_checkpoint(checkpoint_state(
@@ -116,10 +97,6 @@ class Trainer:
                 vals = scalars(tb)
                 if vals['loss'] > 0:
                     train_losses.append(vals['loss'])
-                    if self.tb_log is not None:
-                        self.tb_log.add_scalar('train_loss', vals['loss'], it)
-                        for k, v in vals.items():
-                            self.tb_log.add_scalar('train_' + k, v, it)
             trained_epoch = epoch + 1
             train_loss_epoch = (sum(train_losses) / len(train_losses)
                                 if train_losses else last_logged)
@@ -127,23 +104,15 @@ class Trainer:
             self.log.info('epoch %d: train_loss=%.4f (%.1fs, %d its)',
                           trained_epoch, train_loss_epoch, time.time() - t0,
                           it - start_it)
-            if self.tb_log is not None:
-                self.tb_log.add_scalar('train_loss_epoch', train_loss_epoch,
-                                       trained_epoch)
             if (trained_epoch % self.ckpt_every == 0
                     or trained_epoch == n_epochs):
                 self._save('checkpoint_epoch_%d' % trained_epoch, True,
                            trained_epoch, it)
 
-            if val_loader_fn is not None and epoch % self.eval_frequency == 0:
-                val_loss_epoch, eval_dict = self.eval_epoch(val_loader_fn())
+            if val_loader_fn is not None:
+                val_loss_epoch = self.eval_epoch(val_loader_fn())
                 self.log.info('epoch %d: val_loss=%.4f', trained_epoch,
                               val_loss_epoch)
-                if self.tb_log is not None:
-                    self.tb_log.add_scalar('val_loss_epoch', val_loss_epoch,
-                                           trained_epoch)
-                    for k, v in eval_dict.items():
-                        self.tb_log.add_scalar('val_' + k, v, trained_epoch)
 
             # early stop: train loss down while val loss up, stop_thres
             # epochs running

@@ -139,7 +139,7 @@ def test_checkpoint_save_load_resume(tmp_path):
     other = R(tcfg, REID=R(tcfg.REID, LINK_FC=(64, 32)))
     m3 = build_detector(other, mode='TRAIN', device='cpu', seed=7)
     keep = m3.state_dict()['rcnn.link_layer.mlp.Dense_0.weight'].clone()
-    checkpoint.load_part_ckpt(path, m3)
+    checkpoint.load_checkpoint(path, m3, strict=False)
     sd3 = m3.state_dict()
     assert torch.equal(sd3['rcnn.cls_head.Dense_0.weight'],
                        sd['rcnn.cls_head.Dense_0.weight'])
@@ -147,7 +147,8 @@ def test_checkpoint_save_load_resume(tmp_path):
     torch.save({'model_state': {'nothing': torch.zeros(1)}},
                tmp_path / 'bad.pth')
     with pytest.raises(RuntimeError, match='no keys restored'):
-        checkpoint.load_part_ckpt(str(tmp_path / 'bad'), m3)
+        checkpoint.load_checkpoint(str(tmp_path / 'bad'), m3,
+                                   strict=False)
 
 
 def test_train_entry_point_runs_on_cpu(tmp_path):
