@@ -123,9 +123,33 @@ Phases, in order; any failure exits non-zero:
             finite, one BatchNorm layer's new running mean and variance
             equal (1e-5 of scale) to flax's rule recomputed from the batch
             it saw, and ms a step.
+13. eval     `python -m jmodt_torch.eval` through its stage functions on a
+            raw KITTI tracking tree written to a temporary directory (2
+            validation sequences of 3 frames, 375x1242 PNGs written by
+            utils/png.py, 24000-point sweeps of synthetic scenes moved into
+            lidar coordinates by a pinhole calibration, label_02 ground
+            truth) and converted by `data/converter.py`; Config()
+            (16384 points, a 384x1280 uint8 image, 100 RoIs), random weights
+            from seed 0 and link / se heads from seed 1, saved as a port
+            .pth and read back by `--ckpt`.  Stage 1: the launch counts
+            set to 0 just before; each kernel must launch its detection
+            step count (K1 4 / K2 2 / K3 4 / K4 8 / K5 0 / K6 4) on every
+            frame; every kernel call of frame 1 held against its plain
+            version with phase 2's tolerances; the txt and feat files equal
+            byte for byte to those of a direct make_detection_step run on
+            the same collated batches; the recall counters equal to a CPU
+            recount of the same outputs; a finite AP; `rotate_iou_eval` on
+            the card within 1e-6 of scale of the CPU's (every criterion)
+            and the AP dict equal to the one computed on the CPU.  Stage 2
+            on perfect detections (the gt boxes written as stage-1 files):
+            MOTA 1.0 and 0 id switches for the host tracker (MIP and
+            --hungarian), --device_tracker and --batch_seqs, and the
+            --batch_seqs tracks equal to --device_tracker's.  Prints stage
+            1's ms a frame, each stage-2 mode's frames/s and the AP
+            evaluation's seconds.
 
 Prints a {"kernels": [...]} line (launches from phase 6; per path from
-phases 3, 6, 8 and per training step from 11-12; per-call times and bounds; K1's largest placeable
+phases 3, 6, 8, 13 and per training step from 11-12; per-call times and bounds; K1's largest placeable
 cluster, its cluster size at each N and us a step at level 0; K2's plan,
 us a step and warp sweep per call at S = 1 and 4; K3's plan and library
 time per FP level; K5's FPS floor per level; K4's and K5's
@@ -141,6 +165,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1328,6 +1353,240 @@ def run_full(cfg):
                 losses=[vals, scalars(tb2)])
 
 
+# ----------------------------------------------------------------- phase 13
+
+EVAL_SEQS = ('0000', '0002')        # two validation sequences
+EVAL_FRAMES = 3                     # frames a sequence
+EVAL_IMG_HW = (375, 1242)           # KITTI's camera image
+EVAL_SWEEP = 24000                  # lidar points a sweep, ~20.6k in view
+EVAL_MODES = {'mip': [], 'hungarian': ['--hungarian'],
+              'device_tracker': ['--device_tracker'],
+              'batch_seqs': ['--batch_seqs']}
+IOU_EVAL_TOL = 1e-6
+
+
+def eval_tree(root, cfg):
+    """A raw KITTI tracking tree under root/tracking (synthetic scenes, a
+    pinhole calibration with focal 2 h), converted into
+    root/tracking_object."""
+    from jmodt_torch.data.converter import create_train_sample_data
+    from jmodt_torch.data.synthetic import write_synthetic_kitti_tree
+    write_synthetic_kitti_tree(f'{root}/tracking', cfg,
+                               seq_ids=EVAL_SEQS, n_frames=EVAL_FRAMES,
+                               img_hw=EVAL_IMG_HW, npoints=EVAL_SWEEP, seed=0)
+    create_train_sample_data(f'{root}/tracking', f'{root}/tracking_object')
+
+
+def eval_checkpoint(cfg, path):
+    """A port .pth: detector weights from seed 0, link / se from seed 1."""
+    from torch import nn
+    from jmodt_torch.models.point_rcnn import build_detector, init_weights
+    from jmodt_torch.train.checkpoint import checkpoint_state, save_checkpoint
+    model = build_detector(cfg, device='cpu', seed=0)
+    init_weights(nn.ModuleList([model.rcnn.link_layer, model.rcnn.se_layer]),
+                 1)
+    return save_checkpoint(checkpoint_state(model), path)
+
+
+def perfect_detections(root, det, feat_dim):
+    """The converted gt boxes as stage-1 files (score 0.95), with a
+    feature a track id plus noise."""
+    import os
+    from jmodt_torch.utils.object3d import get_objects_from_label
+    rng = np.random.RandomState(0)
+    ids = rng.randn(64, feat_dim).astype(np.float32)
+    labels = f'{root}/tracking_object/training/label_2'
+    for sub in ('txt', 'feat'):
+        os.makedirs(f'{det}/{sub}')
+    for name in sorted(os.listdir(labels)):
+        objs = [o for o in get_objects_from_label(f'{labels}/{name}')
+                if o.cls_type == 'Car']
+        with open(f'{det}/txt/{name}', 'w') as f:
+            for o in objs:
+                f.write('Car -1 -1 %.4f %.4f %.4f %.4f %.4f %.4f %.4f %.4f '
+                        '%.4f %.4f %.4f %.4f 0.95\n' % (
+                            o.alpha, *o.box2d, o.h, o.w, o.l, *o.pos, o.ry))
+        np.save(f'{det}/feat/{name[:-4]}.npy', np.asarray(
+            [ids[int(o.score)] + 0.01 * rng.randn(feat_dim) for o in objs],
+            np.float32).reshape(-1, feat_dim))
+
+
+def recount_recall(outs, batches):
+    """The (11,) recall counters recomputed on the CPU from the step's
+    outputs: [recalled(5), roi_recalled(5), n_gt]."""
+    from jmodt_torch.models.inference import RECALL_THRESH
+    from jmodt_torch.ops.rotated_iou import boxes_iou3d
+    acc = np.zeros(11, np.int64)
+    for out, data in zip(outs, batches):
+        gt = torch.as_tensor(data['gt_boxes3d'][0][:32], dtype=torch.float32)
+        gt = gt[gt.abs().sum(1) > 0]
+        mask = out['roi_mask'][0].cpu()
+        for col, boxes in ((0, out['pred_boxes_all'][0]),
+                           (5, out['rois'][0])):
+            iou = boxes_iou3d(boxes.cpu(), gt)[mask]
+            best = (iou.amax(0) if len(iou) else torch.zeros(len(gt)))
+            for i, th in enumerate(RECALL_THRESH):
+                acc[col + i] += int((best > th).sum())
+        acc[10] += len(gt)
+    return acc
+
+
+def same_files(a, b):
+    import filecmp
+    import os
+    names = sorted(os.listdir(a))
+    check(names == sorted(os.listdir(b)), f'{a} and {b} hold other files')
+    _, diff, err = filecmp.cmpfiles(a, b, names, shallow=False)
+    return not diff and not err
+
+
+def eval_entry(tmp):
+    """Phase 13: `python -m jmodt_torch.eval`'s stages on a KITTI-format
+    tree, through the module's functions, on the card at Config()."""
+    import logging
+    import os
+    from jmodt_torch.config import Config
+    from jmodt_torch.eval import __main__ as ev
+    from jmodt_torch.eval import clear_mot, detection_ap
+    from jmodt_torch.models.inference import make_detection_step
+    from jmodt_torch.ops import kernels
+    log = logging.getLogger('chip_smoke.eval')
+    log.addHandler(logging.NullHandler())
+    log.propagate = False
+    cfg = Config()
+    eval_tree(f'{tmp}/KITTI', cfg)
+    pth = eval_checkpoint(cfg, f'{tmp}/model')
+
+    def args(out, *flags):
+        return ev.build_parser().parse_args(
+            ['--data_root', f'{tmp}/KITTI', '--det_output', f'{out}/det',
+             '--output_dir', out, '--ckpt', pth, *flags])
+
+    # stage 1: keep each frame's (sample id, batch, calibration, image
+    # shape), the step's outputs and the running launch counts (no host
+    # read is added to the frame)
+    items, outs, per_frame, models, step_ms = [], [], [], [], []
+    frames_of, make_step = ev.detection_frames, ev.make_detection_step
+
+    def detection_frames(*a):
+        ids, frames, dataset = frames_of(*a)
+
+        def kept():
+            for item in frames():
+                items.append(item)
+                yield item
+        return ids, kept, dataset
+
+    def recording_step(cfg_, model, device=None):
+        models.append(model)
+        step = make_step(cfg_, model, device=device)
+
+        def run(*x):
+            t = time.perf_counter()
+            out = step(*x)
+            torch.cuda.synchronize()   # the CLI's read of `packed` waits
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            outs.append(out)
+            per_frame.append(dict(kernels.launches))
+            return out
+        return run
+
+    ev.detection_frames, ev.make_detection_step = (detection_frames,
+                                                   recording_step)
+    try:
+        kernels.launches.clear()
+        res = ev.eval_joint_detection(args(f'{tmp}/eval'), cfg, log)
+    finally:
+        ev.detection_frames, ev.make_detection_step = frames_of, make_step
+    n = len(EVAL_SEQS) * EVAL_FRAMES
+    check(res['frames'] == n == len(outs), f'eval: {res["frames"]} frames')
+    for i, seen in enumerate(per_frame):
+        for name in PER_FRAME_JOINT:
+            want = PER_FRAME.get(name, 0) * (i + 1)
+            check(seen.get(name, 0) == want, f'eval: {name} launched '
+                  f'{seen.get(name, 0)} times in {i + 1} frames, expected '
+                  f'{want}')
+    eval_frame = {k: v // n for k, v in per_frame[-1].items()}
+
+    # every kernel call of one frame against its plain version
+    batches = [item[1] for item in items]
+    step = make_detection_step(cfg, models[0])
+    b0 = batches[0]
+    recorded, _ = record_kernel_inputs(
+        lambda: step(b0['pts_input'], b0['img'], b0['pts_xy']))
+    check_kernels(recorded, PER_FRAME, timed=False)
+
+    # the files of a direct detection-step run on the same batches
+    direct = f'{tmp}/direct'
+    for sub in ('txt', 'feat'):
+        os.makedirs(f'{direct}/{sub}')
+    for sid, data, calib, shape in items:
+        packed = step(data['pts_input'], data['img'],
+                      data['pts_xy'])['packed'][0].cpu().numpy()
+        ev.write_detections(sid, packed, calib, shape, f'{direct}/txt',
+                            f'{direct}/feat', cfg.CLASSES)
+    for sub in ('txt', 'feat'):
+        check(same_files(f'{tmp}/eval/det/{sub}', f'{direct}/{sub}'),
+              f'eval: stage-1 {sub} files differ from a direct step run')
+    recount = recount_recall(outs, batches)
+    check(np.array_equal(res['recall'], recount),
+          f'eval: recall {res["recall"].tolist()} != {recount.tolist()}')
+    check(res['recall'][10] > 0, 'eval: no gt boxes counted')
+    ap = res['ap']
+    check(all(np.isfinite(v) for v in ap.values()), f'eval: AP {ap}')
+
+    # the AP's rotated overlaps on the card against the CPU
+    label_dir = f'{tmp}/KITTI/tracking_object/training/label_2'
+    gt = detection_ap.get_label_annos(label_dir, list(range(n)))
+    dt = detection_ap.get_label_annos(f'{tmp}/eval/det/txt')
+    gb, db = (detection_ap._boxes_for_metric(a, 1) for a in (gt, dt))
+    iou_err = 0.0
+    for crit in (-1, 0, 1, 2):
+        card = detection_ap.rotate_iou_eval(gb, db, crit, device='cuda')
+        cpu = detection_ap.rotate_iou_eval(gb, db, crit, device='cpu')
+        iou_err = max(iou_err, float(np.abs(card - cpu).max()
+                                     / max(1.0, np.abs(cpu).max())))
+    check(iou_err <= IOU_EVAL_TOL, f'eval: rotate_iou_eval card vs CPU '
+          f'{iou_err}')
+    _, ap_cpu = detection_ap.evaluate_detections(
+        label_dir, f'{tmp}/eval/det/txt', list(range(n)), device='cpu')
+    check(ap_cpu == ap, f'eval: AP on the CPU {ap_cpu} != card {ap}')
+
+    # stage 2 on perfect detections, in every mode
+    det = f'{tmp}/perfect'
+    perfect_detections(f'{tmp}/KITTI', det, cfg.RCNN.SA_CONFIG.MLPS[-1][-1])
+    gt_path = f'{tmp}/KITTI/tracking/training'
+    fps, texts = {}, {}
+    for mode, flags in EVAL_MODES.items():
+        fps[mode] = []
+        for run in ('cold', 'warm'):     # the same tracking, twice
+            out = f'{tmp}/track_{mode}_{run}'
+            a = args(out, '--only_tracking', *flags)
+            a.det_output = det
+            r = ev.eval_tracking(a, cfg, log)
+            e = clear_mot.TrackingEvaluation(
+                t_sha=a.tag, result_root=out, part='val', gt_path=gt_path,
+                seqmap=ev._seqmap_from_gt(gt_path))
+            check(e.load_tracker(log) and e.load_groundtruth(log)
+                  and e.compute_metrics(log),
+                  f'eval {mode}: CLEAR-MOT failed')
+            check(abs(e.MOTA - 1.0) < 1e-9 and e.id_switches == 0
+                  and r['mota'] == e.MOTA, f'eval {mode}: MOTA {e.MOTA}, '
+                  f'{e.id_switches} id switches')
+            check(r['frames'] == n, f'eval {mode}: {r["frames"]} frames')
+            fps[mode].append(r['frames'] / r['seconds'])
+            text = [open(f'{r["result_dir"]}/{s}.txt').read()
+                    for s in EVAL_SEQS]
+            check(texts.setdefault(mode, text) == text,
+                  f'eval {mode}: a second run tracked otherwise')
+    check(texts['batch_seqs'] == texts['device_tracker'],
+          'eval: --batch_seqs tracks differ from --device_tracker')
+    return dict(eval_frame=eval_frame, ms=res['ms_per_frame'],
+                step_ms=step_ms,
+                ap_s=res['ap_seconds'], ap=ap, recall=res['recall'].tolist(),
+                iou_err=iou_err, fps=fps, n=n)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1465,6 +1724,29 @@ def main() -> int:
           + json.dumps({k: round(v, 5) for k, v in full['losses'][0].items()})
           + f' ({time.perf_counter() - t0:.1f} s)', flush=True)
 
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ev = eval_entry(tmp)
+    print(f'[13 eval] python -m jmodt_torch.eval on a KITTI-format tree '
+          f'({len(EVAL_SEQS)} sequences x {EVAL_FRAMES} frames, '
+          f'{EVAL_IMG_HW[0]}x{EVAL_IMG_HW[1]} PNGs, {EVAL_SWEEP}-point sweeps)'
+          f', Config() ({Config().DTYPE}): launches a frame '
+          f'{ev["eval_frame"]}; '
+          'each kernel call of frame 1 equal to its plain version; txt and '
+          'feat files equal to a direct detection-step run; recall '
+          f'{ev["recall"]} equal to a CPU recount; rotate_iou_eval card vs '
+          f'CPU err {ev["iou_err"]:.3g}, AP equal ({ev["ap"]}); stage 1 '
+          f'{ev["ms"]:.2f} ms a frame (the CLI\'s clock: step to host read'
+          '); the step synchronized, frame by frame: '
+          + ', '.join(f'{m:.2f}' for m in ev['step_ms'])
+          + f' ms; AP evaluation {ev["ap_s"]:.4f} s; stage 2 on perfect '
+          'detections, MOTA 1.0 and 0 id switches in every mode and run, '
+          '--batch_seqs tracks equal to --device_tracker; frames/s (first '
+          'run, second run): '
+          + ', '.join(f'{m} {f[0]:.1f}, {f[1]:.1f}'
+                      for m, f in ev['fps'].items())
+          + f' ({time.perf_counter() - t0:.1f} s)', flush=True)
+
     rows = []
     for k in KERNELS:
         a = agg[k['name']]
@@ -1476,7 +1758,8 @@ def main() -> int:
                 'joint': jcounts[k['counter']],
                 'batched': bcounts[k['counter']],
                 'train_finetune_step': ft['counts'].get(k['counter'], 0),
-                'train_full_step': full['counts'].get(k['counter'], 0)},
+                'train_full_step': full['counts'].get(k['counter'], 0),
+                'eval_frame': ev['eval_frame'].get(k['counter'], 0)},
             'max_abs_err': a['max_abs_err'], 'ms': a['ms'],
             'plain_ms': a['plain_ms'],
             'bound_ms': max(a['t_ops'], a['t_bytes']) * 1e3,

@@ -1,7 +1,8 @@
-"""The detection step (counterpart of
-`jmodt_tpu/models/inference.py::make_detection_step`): the PointRCNN eval
-forward, RCNN box decode, sigmoid scoring, score threshold and rotated NMS,
-with fixed-shape outputs.
+"""The detection step and the recall counters (counterparts of
+`jmodt_tpu/models/inference.py::make_detection_step` and `make_recall_fn`):
+the PointRCNN eval forward, RCNN box decode, sigmoid scoring, score
+threshold and rotated NMS, with fixed-shape outputs, and the bbox recall of
+its decoded boxes and RoIs.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from jmodt_torch.models.bbox_codec import decode_bbox_target
 from jmodt_torch.models.point_rcnn import PointRCNN
 from jmodt_torch.ops.geometry import boxes3d_to_bev
 from jmodt_torch.ops.nms import nms_bev
+from jmodt_torch.ops.rotated_iou import boxes_iou3d
 
 # ImageNet stats, applied in the step when it receives a raw uint8 image
 _IMG_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -89,3 +91,45 @@ def make_detection_step(cfg: Config, model: PointRCNN, device=None):
                 'seg_result': out['seg_result'], 'packed': packed}
 
     return step
+
+
+RECALL_THRESH = (0.1, 0.3, 0.5, 0.7, 0.9)
+
+
+def make_recall_fn(device=None):
+    """Recall bookkeeping on `device` (default: the CUDA card; raises
+    without one), reference tools/eval.py:129-168: counts of gt boxes
+    recalled at IoU3D thresholds `RECALL_THRESH` by the refined boxes and
+    by the raw RoIs.
+
+    Returns `accumulate(acc, det_out, gt_boxes) -> acc`, which adds one
+    frame of the detection step's outputs (batch row 0) against gt_boxes
+    (G, 7), zero rows being padding, to an (11,) int32 tensor on the
+    device, [recalled(5), roi_recalled(5), n_gt], with no host read."""
+    dev = resolve_device(device)
+    thresh = torch.tensor(RECALL_THRESH, dtype=torch.float32, device=dev)
+
+    def counts(boxes, mask, gt_boxes, gt_mask):
+        iou = boxes_iou3d(boxes, gt_boxes)
+        iou = torch.where(mask[:, None] & gt_mask[None, :], iou,
+                          torch.zeros_like(iou))
+        gt_max = iou.amax(0)
+        return ((gt_max[None, :] > thresh[:, None])
+                & gt_mask[None, :]).sum(1)
+
+    @torch.no_grad()
+    def accumulate(acc, det_out, gt_boxes):
+        gt_boxes = torch.as_tensor(gt_boxes, dtype=torch.float32,
+                                   device=dev)
+        gt_mask = gt_boxes.abs().sum(1) > 0
+        # pred_boxes_all + roi_mask, not the NMS survivors: the reference
+        # counts a gt as recalled if any decoded box covers it, before the
+        # score threshold and NMS (tools/eval.py:149-155)
+        roi_mask = det_out['roi_mask'][0]
+        return acc + torch.cat([
+            counts(det_out['pred_boxes_all'][0], roi_mask, gt_boxes,
+                   gt_mask),
+            counts(det_out['rois'][0], roi_mask, gt_boxes, gt_mask),
+            gt_mask.sum()[None]]).to(torch.int32)
+
+    return accumulate

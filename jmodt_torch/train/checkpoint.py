@@ -7,15 +7,24 @@ Loading is strict, or partial (`strict=False`) as the JAX package's
 `load_part_ckpt`: every saved tensor whose name and shape match is restored, the rest of the model
 keeps its values, and nothing matching raises.  A partial load is what lets
 a detection-only checkpoint start the link / se finetune.
+
+A reference PointRCNN `.pth` (the upstream project's module names) loads
+the same way: `read_model_state` translates its `model_state` to the
+port's names (`weights.reference_state_to_state_dict`).  `read_head_state`
+and `infer_head_arch` read the link / se heads alone, for the tracker.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Any, Optional, Tuple
+import itertools
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from jmodt_torch.weights import (is_reference_state,
+                                 reference_state_to_state_dict)
 
 logger = logging.getLogger(__name__)
 
@@ -47,9 +56,8 @@ def load_checkpoint(filename: str, model: torch.nn.Module,
     when given and saved, the optimizer.  Returns (it, epoch); -1 for an
     epoch and 0 for an it the file does not hold."""
     log = log or logger
-    path = filename if filename.endswith('.pth') else filename + '.pth'
-    state = torch.load(path, map_location='cpu', weights_only=True)
-    saved = state.get('model_state') or {}
+    state = _read(filename)
+    saved = _port_names(state.get('model_state') or {})
     if strict:
         model.load_state_dict(saved, strict=True)
     else:
@@ -72,3 +80,54 @@ def load_checkpoint(filename: str, model: torch.nn.Module,
     it = state['it'] if state.get('it') is not None else 0
     return int(it), int(epoch)
 
+
+
+def _read(filename: str) -> dict:
+    path = filename if filename.endswith('.pth') else filename + '.pth'
+    return torch.load(path, map_location='cpu', weights_only=True)
+
+
+def _port_names(saved: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return (reference_state_to_state_dict(saved)
+            if is_reference_state(saved) else saved)
+
+
+def read_model_state(filename: str) -> Dict[str, torch.Tensor]:
+    """The file's `model_state` under the port's names (CPU tensors)."""
+    return _port_names(_read(filename).get('model_state') or {})
+
+
+def read_head_state(filename: str
+                    ) -> Tuple[Dict[str, torch.Tensor],
+                               Dict[str, torch.Tensor]]:
+    """The link and se heads' state_dicts alone, keyed as a
+    `CorrelationHead`'s own (reference keeps them under
+    rcnn_net.{link,se}_layer)."""
+    sd = read_model_state(filename)
+    heads = []
+    for name in ('link_layer', 'se_layer'):
+        pre = f'rcnn.{name}.'
+        head = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
+        if not head:
+            raise KeyError(f'{filename} holds no rcnn.{name}')
+        heads.append(head)
+    return heads[0], heads[1]
+
+
+def infer_head_arch(head_state: Dict[str, torch.Tensor]
+                    ) -> Tuple[int, Tuple[int, ...], bool]:
+    """(input width, hidden widths, use_bn) of a `CorrelationHead` from its
+    own state_dict, so the tracker does not depend on the training-time
+    config."""
+    cin = int(head_state['mlp.PointwiseLayer_0.Dense_0.weight'].shape[1])
+    hidden = []
+    use_bn = False
+    for i in itertools.count():
+        w = head_state.get(f'mlp.PointwiseLayer_{i}.Dense_0.weight')
+        if w is None:
+            break
+        hidden.append(int(w.shape[0]))
+        use_bn = use_bn or any(k.startswith(f'mlp.PointwiseLayer_{i}.'
+                                            'BatchNorm_0.')
+                               for k in head_state)
+    return cin, tuple(hidden), use_bn

@@ -14,11 +14,21 @@ follow the flax tree, so only the layouts change:
     (Cin, Cout, k, k), flipped on both spatial axes
   * BatchNorm scale / bias / mean / var      -> weight / bias /
     running_mean / running_var
+
+A reference PointRCNN checkpoint (the upstream project's `.pth`, whose
+`model_state` uses its own module names, `rpn.backbone_net.SA_modules...`)
+crosses through the same flax layout: `reference_to_jax_variables` is the
+port's copy of `jmodt_tpu/utils/torch_import.py::convert_model_state`
+(every reference key must be consumed, or it raises), and
+`reference_state_to_state_dict` names the result as the port's
+state_dict, which `train/checkpoint.py` loads for any `.pth` in the
+reference's names.  Nothing is downloaded: the user supplies the file.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import re
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -114,3 +124,241 @@ def export_jax_variables(model: torch.nn.Module) -> Dict[str, Any]:
     """The inverse of `load_jax_variables`: `model`'s parameters and
     BatchNorm statistics as a flax-layout numpy tree."""
     return state_dict_to_jax_variables(model.state_dict())
+
+
+# ---------------------------------------------------------------------------
+# Reference checkpoints: reference module names -> the flax-layout tree.
+
+def _np32(x) -> np.ndarray:
+    if hasattr(x, 'detach'):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _dense_kernel(w) -> np.ndarray:
+    """Conv1d (Cout, Cin, 1) / Conv2d 1x1 (Cout, Cin, 1, 1) / Linear
+    (Cout, Cin) -> Dense (Cin, Cout)."""
+    w = _np32(w)
+    if any(s != 1 for s in w.shape[2:]):
+        raise ValueError(f'expected a 1x1 kernel, got shape {w.shape}')
+    return w.reshape(w.shape[0], w.shape[1]).T
+
+
+def _conv_kernel(w) -> np.ndarray:
+    """Conv2d (Cout, Cin, kH, kW) -> flax (kH, kW, Cin, Cout)."""
+    return np.transpose(_np32(w), (2, 3, 1, 0))
+
+
+def _deconv_kernel(w) -> np.ndarray:
+    """ConvTranspose2d (Cin, Cout, k, k) -> (k, k, Cin, Cout), mirrored."""
+    return np.transpose(_np32(w), (2, 3, 0, 1))[::-1, ::-1]
+
+
+def _set(tree: dict, path: Tuple[str, ...], val: np.ndarray) -> None:
+    d = tree
+    for p in path[:-1]:
+        d = d.setdefault(p, {})
+    if path[-1] in d:
+        raise ValueError(f'duplicate target leaf {path}')
+    d[path[-1]] = val
+
+
+# ---------------------------------------------------------------------------
+# torch-prefix -> (our path template, unit kind) rules.
+#
+# kinds:
+#   pw      conv(+bias)(+bn): PointwiseLayer {Dense_0 [+bias] | +BatchNorm_0}
+#   dense   plain Linear / final 1x1 conv with bias -> {kernel, bias}
+#   conv    3x3 conv, no bias -> {kernel}
+#   deconv  ConvTranspose2d -> NonOverlapDeconv {kernel, bias}
+#   bn      standalone BatchNorm -> BatchNorm_0
+#
+# {0}, {1}, ... substitute the regex groups.
+_RULES = [
+    # -- RPN backbone: PointNet++ MSG SA levels (backbone.py:100-128) --
+    (r'rpn\.backbone_net\.SA_modules\.(\d+)\.mlps\.(\d+)\.layer(\d+)',
+     ('rpn', 'backbone', 'sa_{0}', 'mlp_{1}', 'PointwiseLayer_{2}'), 'pw'),
+    # -- FP levels --
+    (r'rpn\.backbone_net\.FP_modules\.(\d+)\.mlp\.layer(\d+)',
+     ('rpn', 'backbone', 'fp_{0}', 'PointwiseMLP_0', 'PointwiseLayer_{1}'),
+     'pw'),
+    # -- image CNN blocks (BasicBlock: conv1/bn1/conv2, backbone.py:15-30) --
+    (r'rpn\.backbone_net\.Img_Block\.(\d+)\.conv1',
+     ('rpn', 'backbone', 'img_block_{0}', 'Conv_0'), 'conv'),
+    (r'rpn\.backbone_net\.Img_Block\.(\d+)\.bn1',
+     ('rpn', 'backbone', 'img_block_{0}', 'BatchNorm_0'), 'bn'),
+    (r'rpn\.backbone_net\.Img_Block\.(\d+)\.conv2',
+     ('rpn', 'backbone', 'img_block_{0}', 'Conv_1'), 'conv'),
+    # -- LI-Fusion blocks, per-level and final (backbone.py:33-89) --
+    (r'rpn\.backbone_net\.Fusion_Conv\.(\d+)\.IA_Layer\.conv1',
+     ('rpn', 'backbone', 'fusion_{0}', 'IALayer_0', 'PointwiseLayer_0'),
+     'pw'),
+    (r'rpn\.backbone_net\.Fusion_Conv\.(\d+)\.IA_Layer\.fc([123])',
+     ('rpn', 'backbone', 'fusion_{0}', 'IALayer_0', 'Dense_{1-}'), 'dense'),
+    (r'rpn\.backbone_net\.Fusion_Conv\.(\d+)',
+     ('rpn', 'backbone', 'fusion_{0}', 'PointwiseLayer_0'), 'pw'),
+    (r'rpn\.backbone_net\.final_fusion_img_point\.IA_Layer\.conv1',
+     ('rpn', 'backbone', 'final_fusion', 'IALayer_0', 'PointwiseLayer_0'),
+     'pw'),
+    (r'rpn\.backbone_net\.final_fusion_img_point\.IA_Layer\.fc([123])',
+     ('rpn', 'backbone', 'final_fusion', 'IALayer_0', 'Dense_{0-}'),
+     'dense'),
+    (r'rpn\.backbone_net\.final_fusion_img_point',
+     ('rpn', 'backbone', 'final_fusion', 'PointwiseLayer_0'), 'pw'),
+    # -- image deconv pyramid + 1x1 reduce (backbone.py:130-139) --
+    (r'rpn\.backbone_net\.DeConv\.(\d+)',
+     ('rpn', 'backbone', 'img_pyramid', 'NonOverlapDeconv_{0}'), 'deconv'),
+    (r'rpn\.backbone_net\.image_fusion_conv',
+     ('rpn', 'backbone', 'img_pyramid', 'Conv_0'), 'dense_conv'),
+    (r'rpn\.backbone_net\.image_fusion_bn',
+     ('rpn', 'backbone', 'img_pyramid', 'BatchNorm_0'), 'bn'),
+    # -- RPN heads (rpn.py:21-47; Sequential index 1 is a dropout) --
+    (r'rpn\.rpn_cls_layer\.0',
+     ('rpn', 'cls_head', 'PointwiseLayer_0'), 'pw'),
+    (r'rpn\.rpn_cls_layer\.2', ('rpn', 'cls_head', 'Dense_0'), 'dense'),
+    (r'rpn\.rpn_reg_layer\.0',
+     ('rpn', 'reg_head', 'PointwiseLayer_0'), 'pw'),
+    (r'rpn\.rpn_reg_layer\.2', ('rpn', 'reg_head', 'Dense_0'), 'dense'),
+    # -- RCNN (rcnn.py:17-76) --
+    (r'rcnn_net\.SA_modules\.(\d+)\.mlps\.0\.layer(\d+)',
+     ('rcnn', 'sa_{0}', 'mlp_0', 'PointwiseLayer_{1}'), 'pw'),
+    (r'rcnn_net\.xyz_up_layer\.layer(\d+)',
+     ('rcnn', 'xyz_up', 'PointwiseLayer_{0}'), 'pw'),
+    (r'rcnn_net\.merge_down_layer\.layer0',
+     ('rcnn', 'merge_down', 'PointwiseLayer_0'), 'pw'),
+    (r'rcnn_net\.cls_layer\.0', ('rcnn', 'cls_head', 'PointwiseLayer_0'),
+     'pw'),
+    (r'rcnn_net\.cls_layer\.2', ('rcnn', 'cls_head', 'PointwiseLayer_1'),
+     'pw'),
+    (r'rcnn_net\.cls_layer\.3', ('rcnn', 'cls_head', 'Dense_0'), 'dense'),
+    (r'rcnn_net\.reg_layer\.0', ('rcnn', 'reg_head', 'PointwiseLayer_0'),
+     'pw'),
+    (r'rcnn_net\.reg_layer\.2', ('rcnn', 'reg_head', 'PointwiseLayer_1'),
+     'pw'),
+    (r'rcnn_net\.reg_layer\.3', ('rcnn', 'reg_head', 'Dense_0'), 'dense'),
+    (r'rcnn_net\.link_layer\.0',
+     ('rcnn', 'link_layer', 'mlp', 'PointwiseLayer_0'), 'pw'),
+    (r'rcnn_net\.link_layer\.2',
+     ('rcnn', 'link_layer', 'mlp', 'PointwiseLayer_1'), 'pw'),
+    (r'rcnn_net\.link_layer\.3',
+     ('rcnn', 'link_layer', 'mlp', 'Dense_0'), 'dense'),
+    (r'rcnn_net\.se_layer\.0',
+     ('rcnn', 'se_layer', 'mlp', 'PointwiseLayer_0'), 'pw'),
+    (r'rcnn_net\.se_layer\.2',
+     ('rcnn', 'se_layer', 'mlp', 'PointwiseLayer_1'), 'pw'),
+    (r'rcnn_net\.se_layer\.3',
+     ('rcnn', 'se_layer', 'mlp', 'Dense_0'), 'dense'),
+]
+
+
+def _fill_path(tpl: Tuple[str, ...], groups: Tuple[str, ...]
+               ) -> Tuple[str, ...]:
+    out = []
+    for part in tpl:
+        m = re.search(r'\{(\d+)(-?)\}', part)
+        if m:
+            idx = int(m.group(1))
+            val = groups[idx]
+            if m.group(2):  # '{i-}': fc1/2/3 -> Dense_0/1/2
+                val = str(int(val) - 1)
+            part = part[:m.start()] + val + part[m.end():]
+        out.append(part)
+    return tuple(out)
+
+
+def reference_to_jax_variables(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Map a reference ``model_state`` dict onto the flax-layout tree
+    ``{'params', 'batch_stats'}`` that `load_jax_variables` takes.
+
+    Every key must be consumed (``num_batches_tracked`` aside) — an
+    unrecognized key raises, so silent drift between the two models is
+    impossible.
+    """
+    # group torch keys by (rule index, filled target path)
+    units: Dict[Tuple[Tuple[str, ...], str], Dict[str, np.ndarray]] = {}
+    for key, val in sd.items():
+        if key.endswith('num_batches_tracked'):
+            continue
+        for pat, tpl, kind in _RULES:
+            m = re.match(pat + r'\.', key)
+            if m:
+                path = _fill_path(tpl, m.groups())
+                role = key[m.end():]
+                unit = units.setdefault((path, kind), {})
+                if role in unit:
+                    raise ValueError(f'duplicate role {role} for {path}')
+                unit[role] = val
+                break
+        else:
+            raise ValueError(f'unrecognized reference key: {key}')
+
+    params: dict = {}
+    stats: dict = {}
+    for (path, kind), unit in units.items():
+        if kind == 'pw':
+            # Role spellings vary by module ('conv.weight' + 'bn.bn.*',
+            # 'conv1.weight' + 'bn1.*', '0.weight' + '1.*'); resolve by
+            # structure: the conv weight is the unique ndim>=2 array, its
+            # sibling '.bias' is the conv bias, and the BN roles share a
+            # prefix with 'running_mean'.
+            (conv_role,) = [r for r in unit if _np32(unit[r]).ndim >= 2]
+            w = unit[conv_role]
+            cpre = conv_role[:-len('weight')]  # includes trailing '.' or ''
+            conv_b = unit.get(cpre + 'bias')
+            bn_roles = [r for r in unit if r.endswith('running_mean')]
+            _set(params, path + ('Dense_0', 'kernel'), _dense_kernel(w))
+            if bn_roles:
+                bpre = bn_roles[0][:-len('running_mean')]
+                mean = _np32(unit[bpre + 'running_mean'])
+                if conv_b is not None:
+                    mean = mean - _np32(conv_b)
+                _set(params, path + ('BatchNorm_0', 'scale'),
+                     _np32(unit[bpre + 'weight']))
+                _set(params, path + ('BatchNorm_0', 'bias'),
+                     _np32(unit[bpre + 'bias']))
+                _set(stats, path + ('BatchNorm_0', 'mean'), mean)
+                _set(stats, path + ('BatchNorm_0', 'var'),
+                     _np32(unit[bpre + 'running_var']))
+            else:
+                _set(params, path + ('Dense_0', 'bias'), _np32(conv_b))
+        elif kind == 'dense':
+            # 'weight'/'bias' (Linear) or 'conv.weight'/'conv.bias' (the
+            # Sequential heads' final 1x1 conv)
+            w = unit.get('weight', unit.get('conv.weight'))
+            b = unit.get('bias', unit.get('conv.bias'))
+            _set(params, path + ('kernel',), _dense_kernel(w))
+            _set(params, path + ('bias',), _np32(b))
+        elif kind == 'dense_conv':  # 1x1 Conv module kept as flax Conv
+            _set(params, path + ('kernel',), _conv_kernel(unit['weight']))
+            _set(params, path + ('bias',), _np32(unit['bias']))
+        elif kind == 'conv':
+            _set(params, path + ('kernel',), _conv_kernel(unit['weight']))
+        elif kind == 'deconv':
+            _set(params, path + ('kernel',), _deconv_kernel(unit['weight']))
+            _set(params, path + ('bias',), _np32(unit['bias']))
+        elif kind == 'bn':
+            _set(params, path + ('scale',), _np32(unit['weight']))
+            _set(params, path + ('bias',), _np32(unit['bias']))
+            _set(stats, path + ('mean',), _np32(unit['running_mean']))
+            _set(stats, path + ('var',), _np32(unit['running_var']))
+        else:  # pragma: no cover
+            raise AssertionError(kind)
+
+    out: dict = {'params': params}
+    if stats:
+        out['batch_stats'] = stats
+    return out
+
+
+
+
+def is_reference_state(state_dict: Mapping[str, Any]) -> bool:
+    """Whether a `model_state` uses the reference's module names."""
+    return any(k.startswith(('rpn.backbone_net.', 'rcnn_net.', 'rpn.rpn_'))
+               for k in state_dict)
+
+
+def reference_state_to_state_dict(state_dict: Mapping[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """A reference `model_state` as the port's state_dict."""
+    return jax_variables_to_state_dict(reference_to_jax_variables(state_dict))

@@ -58,6 +58,48 @@ def test_importing_the_port_loads_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+EVAL_SLICE_MODULES = (
+    'jmodt_torch.utils.calibration', 'jmodt_torch.utils.object3d',
+    'jmodt_torch.utils.png', 'jmodt_torch.utils.kitti_io',
+    'jmodt_torch.data.kitti_dataset', 'jmodt_torch.data.converter',
+    'jmodt_torch.tracking.kalman', 'jmodt_torch.tracking.track',
+    'jmodt_torch.tracking.data_association', 'jmodt_torch.tracking.tracker',
+    'jmodt_torch.eval', 'jmodt_torch.eval.detection_ap',
+    'jmodt_torch.eval.clear_mot', 'jmodt_torch.eval.__main__')
+
+
+def test_eval_slice_imports_with_jax_blocked():
+    """Every module of the evaluation path imports with JAX, flax and the
+    JAX package blocked from `sys.modules` (an import of any of them
+    raises), and without PIL."""
+    blocked = FORBIDDEN + ('PIL',)
+    code = ('import sys\n'
+            + ''.join(f'sys.modules[{m!r}] = None\n' for m in blocked)
+            + ''.join(f'import {m}\n' for m in EVAL_SLICE_MODULES)
+            + 'print("ok")\n')
+    res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and 'ok' in res.stdout, res.stderr
+
+
+def test_eval_needs_a_card_unless_asked(monkeypatch, tmp_path):
+    from jmodt_torch.eval import __main__ as eval_main
+    from jmodt_torch.eval import detection_ap
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        eval_main.main(['--small', '--det_output', str(tmp_path / 'det'),
+                        '--output_dir', str(tmp_path)])
+    assert not (tmp_path / 'det').exists()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        inference.make_recall_fn()
+    box = np.array([[0.0, 0.0, 4.0, 2.0, 0.3]])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        detection_ap.rotate_iou_eval(box, box)
+    inference.make_recall_fn(device='cpu')
+    assert detection_ap.rotate_iou_eval(box, box, 2, device='cpu')[0, 0] \
+        == pytest.approx(8.0)
+
+
 def _small_cfg():
     return torch_config._merge(torch_config.Config(), dataclasses.asdict(
         dataclasses.replace(__graft_entry__._small_config(),
