@@ -144,6 +144,10 @@ def eval_joint_detection(args, cfg, logger):
     model = build_model_and_ckpt(cfg, mode, args.ckpt, logger, device)
     step = make_detection_step(cfg, model, device=device)
     accumulate_recall = make_recall_fn(device=device)
+    if device.type == 'cuda':
+        # build the kernels now, so the frames' clock does not hold nvcc
+        from jmodt_torch.ops import kernels
+        logger.info('kernels built in %.1f s', kernels.build())
 
     # the recall counters stay on the device across frames; a frame reads
     # the host once, its packed rows
