@@ -147,11 +147,42 @@ Phases, in order; any failure exits non-zero:
             --batch_seqs tracks equal to --device_tracker's.  Prints stage
             1's ms a frame, each stage-2 mode's frames/s and the AP
             evaluation's seconds.
+14. kitti   `python -m jmodt_torch.train --data_root` through its `main`
+            on a raw KITTI tracking tree written to a temporary directory
+            (a training sequence of 13 frames, so 12 pairs, a validation
+            sequence of 3 and small_val's of 2; 375x1242 PNGs and
+            24000-point sweeps as phase 13's) and converted: Config()
+            finetune with REID.FG_THRESH 0 (`--set`), 4 pairs a step, 2
+            loader processes, 1 epoch of 3 steps, `--async_ckpt`.  The
+            launch counts are set to 0 before each step; every step must
+            launch phase 11's counts, its loss terms be finite, the loss,
+            grad_norm and every link / se weight gradient nonzero and
+            finite; step 1's kernel calls are recorded and each held
+            against its plain version with phase 2's tolerances; every
+            frozen parameter and buffer bit-equal after the steps; the
+            background checkpoint_epoch_1 loads into a fresh model bit-equal
+            to the trained one.  A resume from it (`TRAIN.RELOAD_OPTIMIZER`,
+            0 loader processes, 2 epochs) must start at iteration 3, take
+            as its first batch the dataset's own collate of the seed's first
+            pairs, launch the same counts and save epoch 2 at iteration 6.
+            Then one full-losses step (`--finetune`, 1 pair, the small_val
+            split): phase 12's counts, K6 backward 4 times, every gradient
+            finite.  Prints ms a step (CUDA events and wall), the peak
+            memory, the loader's host ms a batch at 0 and 2 processes and
+            what `utils/png.py` takes to read one 375x1242 PNG with filter 0
+            on every row and with all five filters (written by a small
+            encoder here).  Last, `python -m jmodt_torch.eval.mot_sweep`
+            (a 2x2 grid of cls_thresh x t_miss, on the card) over perfect
+            detections of the tree: MOTA 1.0 for each config whose
+            cls_thresh lies below their score, and the best config's track
+            files equal to `python -m jmodt_torch.eval --only_tracking`
+            with its flags.
 
 Prints a {"kernels": [...]} line (launches from phase 6; per path from
-phases 3, 6, 8, 13 and per training step from 11-12; per-call times and bounds; K1's largest placeable
-cluster, its cluster size at each N and us a step at level 0; K2's plan,
-us a step and warp sweep per call at S = 1 and 4; K3's plan and library
+phases 3, 6, 8, 13 and per training step from 11, 12 and 14; per-call
+times and bounds; K1's largest placeable cluster, its cluster size at
+each N and us a step at level 0; K2's plan, us a step and warp sweep per
+call at S = 1 and 4; K3's plan and library
 time per FP level; K5's FPS floor per level; K4's and K5's
 tensor-core route, with bounds at the TF32 peak for the three products of
 each multiply-add and, for reference, as float32 FMAs), the card's name
@@ -1586,6 +1617,331 @@ def eval_entry(tmp):
                 ap_s=res['ap_seconds'], ap=ap, recall=res['recall'].tolist(),
                 iou_err=iou_err, fps=fps, n=n)
 
+# ----------------------------------------------------------------- phase 14
+
+# a raw tracking tree at KITTI's sizes: the training sequence's 13 frames
+# give 12 pairs (3 steps of TRAIN_PAIRS), a validation sequence is
+# tracked by the sweep, and small_val (0019) holds the 1 pair of the
+# full-losses step
+KITTI_TRAIN_SEQS = (('0001', 13, 2), ('0000', 3, 3), ('0019', 2, 4))
+KITTI_TRAIN_STEPS = 3
+TRAIN_IMG_HW = (384, 1280)           # the training CLI's image at Config()
+SWEEP_GRID = {'cls_thresh': [0.5, 0.97], 't_miss': [2, 4], 't_hit': [0]}
+PERFECT_SCORE = 0.95                 # perfect_detections' score
+PNG_REPS = 3
+
+
+def kitti_train_tree(root, cfg):
+    """root/tracking (the sequences above, 375x1242 PNGs, 24000-point
+    sweeps) converted into root/tracking_object."""
+    from jmodt_torch.data.converter import create_train_sample_data
+    from jmodt_torch.data.synthetic import write_synthetic_kitti_tree
+    for seq, n, seed in KITTI_TRAIN_SEQS:
+        write_synthetic_kitti_tree(f'{root}/tracking', cfg, seq_ids=(seq,),
+                                   n_frames=n, img_hw=EVAL_IMG_HW,
+                                   npoints=EVAL_SWEEP, seed=seed)
+    create_train_sample_data(f'{root}/tracking', f'{root}/tracking_object')
+
+
+def recording_train_steps(rec, kernel_inputs=False):
+    """A stand-in for `trainer.make_train_step` whose steps run the real
+    step with the launch counts set to 0 just before, time it (CUDA events
+    and the wall clock, synchronized), read its launches, its loss terms
+    and its link / se gradients, and keep the model, the optimizer's count
+    before step 1, a copy of the parameters step 1 must not move and step
+    1's batch; with `kernel_inputs` step 1 also records every kernel
+    wrapper's inputs."""
+    from jmodt_torch.ops import kernels
+    from jmodt_torch.train import trainer
+    from jmodt_torch.train.train_step import scalars
+    make = trainer.make_train_step
+
+    def factory(cfg, model, optimizer, seed=0, device=None):
+        step = make(cfg, model, optimizer, seed, device)
+        rec.update(model=model, start=optimizer.count, steps=[])
+
+        def run(batch):
+            first = not rec['steps']
+            if first:
+                rec['frozen'] = {k: v.clone() for k, v in
+                                 model.state_dict().items() if not trains(k)}
+                rec['batch'] = {k: v.cpu() for k, v in batch.items()}
+            if len(rec['steps']) == 1:
+                torch.cuda.reset_peak_memory_stats()
+            kernels.launches.clear()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            if first and kernel_inputs:
+                rec['recorded'], tb = record_kernel_inputs(lambda: step(batch))
+            else:
+                tb = step(batch)
+            end.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            vals = scalars(tb)
+            grads = {k: p.grad for k, p in model.named_parameters()
+                     if trains(k) and k.endswith('weight')}
+            rec['steps'].append(dict(
+                counts=dict(kernels.launches), ms=start.elapsed_time(end),
+                wall=wall, vals=vals, peak_gib=(
+                    torch.cuda.max_memory_allocated() / 2 ** 30),
+                grads_ok=all(g is not None and bool(g.any())
+                             and bool(torch.isfinite(g).all())
+                             for g in grads.values()),
+                all_grads_finite=all(
+                    p.grad is not None and bool(torch.isfinite(p.grad).all())
+                    for p in model.parameters())))
+            return tb
+        return run
+    return factory
+
+
+def train_main(argv, factory):
+    """`python -m jmodt_torch.train` in this process with `factory` as the
+    trainer's make_train_step; the root logger's file handler that it
+    adds is closed after."""
+    import logging
+    from jmodt_torch.train import __main__ as train_cli
+    from jmodt_torch.train import trainer
+    make = trainer.make_train_step
+    trainer.make_train_step = factory
+    try:
+        train_cli.main(argv)
+    finally:
+        trainer.make_train_step = make
+        root = logging.getLogger()
+        for h in list(root.handlers):
+            if isinstance(h, logging.FileHandler):
+                root.removeHandler(h)
+                h.close()
+
+
+def loader_ms(dataset, workers):
+    """(host ms to the first batch, ms a batch after it) of one epoch of
+    `make_loader(dataset, TRAIN_PAIRS, num_workers=workers)`."""
+    from jmodt_torch.train.trainer import make_loader
+    t0 = time.perf_counter()
+    times = []
+    for _ in make_loader(dataset, TRAIN_PAIRS, num_workers=workers)():
+        times.append(time.perf_counter())
+    check(len(times) == KITTI_TRAIN_STEPS, f'loader at {workers} workers: '
+          f'{len(times)} batches')
+    return ((times[0] - t0) * 1e3,
+            (times[-1] - times[0]) * 1e3 / max(len(times) - 1, 1))
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def write_filtered_png(path, img):
+    """An RGB PNG whose row r uses filter r % 5 (None, Sub, Up, Average,
+    Paeth), as an adaptive encoder mixes them."""
+    import struct
+    import zlib
+    h, w, c = img.shape
+    x = img.astype(np.int32).reshape(h, w * c)
+    up = np.vstack([np.zeros((1, w * c), np.int32), x[:-1]])
+    left = np.hstack([np.zeros((h, c), np.int32), x[:, :-c]])
+    ul = np.hstack([np.zeros((h, c), np.int32), up[:, :-c]])
+    preds = [np.zeros_like(x), left, up, (left + up) >> 1,
+             _paeth(left, up, ul)]
+    ftype = np.arange(h) % 5
+    rows = np.stack([(x[r] - preds[ftype[r]][r]) & 255 for r in range(h)])
+    raw = np.hstack([ftype[:, None], rows]).astype(np.uint8).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body
+                + struct.pack('>I', zlib.crc32(kind + body) & 0xffffffff))
+    with open(path, 'wb') as f:
+        f.write(b'\x89PNG\r\n\x1a\n'
+                + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
+                + chunk(b'IDAT', zlib.compress(raw, 6)) + chunk(b'IEND', b''))
+
+
+def png_read_ms(tmp, src):
+    """(ms to read `src`, a filter-0 PNG, ms to read the same image with
+    all five filters) with `utils/png.py`, the best of PNG_REPS; the
+    filtered file must decode to the same pixels."""
+    from jmodt_torch.utils.png import read_png_rgb
+    img = read_png_rgb(src)
+    path = f'{tmp}/filtered.png'
+    write_filtered_png(path, img)
+    check(np.array_equal(read_png_rgb(path), img),
+          'png: the filtered PNG decodes to other pixels')
+    out = []
+    for f in (src, path):
+        ts = []
+        for _ in range(PNG_REPS):
+            t0 = time.perf_counter()
+            read_png_rgb(f)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out.append(min(ts))
+    return out
+
+
+def check_train_steps(rec, n, per_step, what):
+    check(len(rec['steps']) == n, f'{what}: {len(rec["steps"])} steps, '
+          f'expected {n}')
+    for i, s in enumerate(rec['steps']):
+        check_counts(s['counts'], per_step, f'{what} step {i + 1}')
+        check(all(np.isfinite(v) for v in s['vals'].values()),
+              f'{what} step {i + 1}: non-finite loss terms {s["vals"]}')
+
+
+def kitti_train(tmp):
+    """Phase 14: `python -m jmodt_torch.train --data_root` at Config()
+    (finetune from KITTI files, a resume, one full-losses step), the
+    loader's and the PNG reader's host cost, and the MOT sweep."""
+    import os
+    from jmodt_torch.config import Config
+    from jmodt_torch.data.kitti_dataset import KittiDataset
+    from jmodt_torch.eval import __main__ as ev
+    from jmodt_torch.eval import mot_sweep
+    from jmodt_torch.models.point_rcnn import build_detector
+    from jmodt_torch.ops import depth_to_space as d2s
+    from jmodt_torch.train.checkpoint import load_checkpoint
+    from jmodt_torch.train.train_step import BATCH_KEYS
+    root = f'{tmp}/KITTI'
+    t0 = time.perf_counter()
+    kitti_train_tree(root, Config())
+    tree_s = time.perf_counter() - t0
+    # what the CLI builds from these overrides
+    overrides = ['REID.FG_THRESH', '0.0']
+    cfg = train_cfg(True, Config().DTYPE, reid_fg_thresh=0.0)
+
+    # finetune from KITTI files: 3 steps of 4 pairs, 2 loader processes,
+    # the checkpoint written in the background
+    rec = {}
+    t0 = time.perf_counter()
+    train_main(['--data_root', root, '--batch_size', str(TRAIN_PAIRS),
+                '--workers', '2', '--epochs', '1', '--async_ckpt',
+                '--output_dir', f'{tmp}/ft', '--set', *overrides],
+               recording_train_steps(rec, kernel_inputs=True))
+    run_s = time.perf_counter() - t0
+    check_train_steps(rec, KITTI_TRAIN_STEPS, PER_STEP_FINETUNE,
+                      'kitti finetune')
+    for i, s in enumerate(rec['steps']):
+        check(s['vals']['loss'] > 0 and s['vals']['grad_norm'] > 0
+              and s['grads_ok'], f'kitti finetune step {i + 1}: loss '
+              f'{s["vals"]["loss"]}, a link / se weight gradient 0 or '
+              'not finite')
+    model = rec['model']
+    after = model.state_dict()
+    for k, v in rec['frozen'].items():
+        check(torch.equal(after[k], v), f'kitti finetune: frozen {k} changed')
+    print('[14 kitti] kernel calls of training step 1 from KITTI files vs '
+          'plain version:', flush=True)
+    check_kernels(rec['recorded'], {k: v for k, v in
+                                    PER_STEP_FINETUNE.items() if v},
+                  timed=False)
+    del rec['recorded']
+    ckpt = f'{tmp}/ft/ckpt/checkpoint_epoch_1.pth'
+    fresh = build_detector(cfg, mode='TRAIN', seed=7)
+    check(load_checkpoint(ckpt, fresh) == (KITTI_TRAIN_STEPS, 1),
+          'kitti finetune: checkpoint epoch / it')
+    saved = fresh.state_dict()
+    check(all(torch.equal(saved[k], v) for k, v in after.items()),
+          'kitti finetune: the async checkpoint differs from the model')
+    steps = rec['steps']
+    del fresh, saved, model, after, rec
+
+    # resume from it at 0 loader processes: epoch 2 from iteration 3, its
+    # first batch the dataset's own collate of the seed's first pairs
+    rec2 = {}
+    train_main(['--data_root', root, '--batch_size', str(TRAIN_PAIRS),
+                '--workers', '0', '--epochs', '2', '--ckpt', ckpt,
+                '--output_dir', f'{tmp}/resume', '--set', *overrides,
+                'TRAIN.RELOAD_OPTIMIZER', 'True'],
+               recording_train_steps(rec2))
+    check_train_steps(rec2, KITTI_TRAIN_STEPS, PER_STEP_FINETUNE,
+                      'kitti resume')
+    check(rec2['start'] == KITTI_TRAIN_STEPS, f'kitti resume: started at '
+          f'iteration {rec2["start"]}')
+    state = torch.load(f'{tmp}/resume/ckpt/checkpoint_epoch_2.pth',
+                       map_location='cpu', weights_only=True)
+    check(state['epoch'] == 2 and state['it'] == 2 * KITTI_TRAIN_STEPS,
+          f'kitti resume: saved epoch {state["epoch"]} it {state["it"]}')
+    dataset = KittiDataset(root, npoints=cfg.RPN.NUM_POINTS, split='train',
+                           mode='TRAIN', cfg=cfg,
+                           fixed_img_size=TRAIN_IMG_HW)
+    order = np.arange(len(dataset))
+    np.random.RandomState(0).shuffle(order)
+    direct = dataset.collate_batch([dataset[j]
+                                    for j in order[:TRAIN_PAIRS]])
+    keys = [k for k in BATCH_KEYS if k in direct]
+    check(sorted(keys) == sorted(rec2['batch']) and all(
+        torch.equal(rec2['batch'][k], torch.from_numpy(direct[k]))
+        for k in keys), 'kitti resume: the first batch differs from the '
+          "dataset's collate")
+    del rec2, state
+
+    # one full-losses step on the small_val pair
+    rec3 = {}
+    backward = d2s.DepthToSpace.backward
+    k6_back = []
+
+    def counted(ctx, grad):
+        k6_back.append(1)
+        return backward(ctx, grad)
+
+    d2s.DepthToSpace.backward = staticmethod(counted)
+    try:
+        train_main(['--data_root', root, '--finetune', '--batch_size', '1',
+                    '--workers', '0', '--epochs', '1', '--output_dir',
+                    f'{tmp}/full', '--set', 'TRAIN.SPLIT', 'small_val'],
+                   recording_train_steps(rec3))
+    finally:
+        d2s.DepthToSpace.backward = backward
+    check_train_steps(rec3, 1, PER_STEP_FULL, 'kitti full losses')
+    check(len(k6_back) == K6_BACKWARD_FULL and rec3['steps'][0][
+        'all_grads_finite'], f'kitti full losses: K6 backward '
+          f'{len(k6_back)} times, or a gradient missing or not finite')
+    full = rec3['steps'][0]
+    del rec3
+
+    # the loader's host cost a batch, in this process and in 2 workers
+    loader = {w: loader_ms(dataset, w) for w in (0, 2)}
+    png = png_read_ms(tmp, f'{root}/tracking_object/training/image_2/'
+                      '000000.png')
+
+    # the MOT sweep over perfect detections, then the eval CLI with the
+    # best config's flags
+    det = f'{tmp}/perfect'
+    perfect_detections(root, det, cfg.RCNN.SA_CONFIG.MLPS[-1][-1])
+    pth = eval_checkpoint(Config(), f'{tmp}/heads')
+    t0 = time.perf_counter()
+    summary = mot_sweep.main(['--det_output', det, '--data_root', root,
+                              '--ckpt', pth, '--output_dir', f'{tmp}/sweep',
+                              '--grid', json.dumps(SWEEP_GRID)])
+    sweep_s = time.perf_counter() - t0
+    results = summary['results']
+    check(len(results) == 4, f'sweep: {len(results)} configs')
+    for r in results:
+        if r['cls_thresh'] < PERFECT_SCORE:
+            check(r['mota'] == 1.0, f'sweep: MOTA {r["mota"]} at {r}')
+    best = summary['best']
+    check(best is not None and best['cls_thresh'] < PERFECT_SCORE,
+          f'sweep: best {best}')
+    ev.main(['--data_root', root, '--det_output', det, '--output_dir',
+             f'{tmp}/best', '--ckpt', pth, '--only_tracking']
+            + [f'--{k}={best[k]}' for k in SWEEP_GRID])
+    a, b = f'{tmp}/sweep/{best["tag"]}/val', f'{tmp}/best/mot_data/val'
+    names = sorted(n for n in os.listdir(a) if n.endswith('.txt'))
+    check(names == sorted(n for n in os.listdir(b) if n.endswith('.txt'))
+          and all(open(f'{a}/{n}').read() == open(f'{b}/{n}').read()
+                  for n in names) and any(os.path.getsize(f'{a}/{n}')
+                                          for n in names),
+          'sweep: the best config tracks otherwise than the eval CLI')
+    return dict(steps=steps, full=full, k6_back=len(k6_back), loader=loader,
+                png=png, results=results, best=best, tree_s=tree_s,
+                run_s=run_s, sweep_s=sweep_s, pairs=len(dataset))
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1747,6 +2103,46 @@ def main() -> int:
                       for m, f in ev['fps'].items())
           + f' ({time.perf_counter() - t0:.1f} s)', flush=True)
 
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        kt = kitti_train(tmp)
+    st, fl, ld = kt['steps'], kt['full'], kt['loader']
+    print(f'[14 kitti] python -m jmodt_torch.train --data_root on a '
+          f'KITTI-format tree ({kt["pairs"]} training pairs, '
+          f'{EVAL_IMG_HW[0]}x{EVAL_IMG_HW[1]} PNGs, {EVAL_SWEEP}-point '
+          f'sweeps, written in {kt["tree_s"]:.1f} s), Config() '
+          f'({Config().DTYPE}) finetune with REID.FG_THRESH 0, {TRAIN_PAIRS} '
+          'pairs a step, 2 loader processes, async checkpoint: launches a '
+          f'step {st[-1]["counts"]}; each kernel call of step 1 equal to its '
+          'plain version; loss and every link / se weight gradient finite '
+          'and nonzero; frozen parameters bit-equal; checkpoint_epoch_1 '
+          'loads bit-equal; a resume at 0 loader processes starts at '
+          f'iteration {KITTI_TRAIN_STEPS} with the dataset\'s own first '
+          'batch; steps 1-3 '
+          + ', '.join(f'{s["ms"]:.2f}' for s in st) + ' ms (CUDA events), '
+          + ', '.join(f'{s["wall"]:.2f}' for s in st) + ' ms (wall); peak '
+          f'memory {st[-1]["peak_gib"]:.2f} GiB (steps 2-3); the run '
+          f'{kt["run_s"]:.1f} s; losses step 1 '
+          + json.dumps({k: round(v, 5) for k, v in st[0]['vals'].items()}),
+          flush=True)
+    print(f'[14 kitti] full losses (--finetune passed), 1 pair: launches '
+          f'{fl["counts"]}, K6 backward {kt["k6_back"]} times, every '
+          f'gradient finite; {fl["ms"]:.2f} ms (CUDA events), '
+          f'{fl["wall"]:.2f} ms (wall)', flush=True)
+    print(f'[14 kitti] loader, host ms a batch of {TRAIN_PAIRS} pairs: '
+          + '; '.join(f'{w} workers: first batch {a:.1f} ms, then '
+                      f'{b:.1f} ms a batch' for w, (a, b) in ld.items())
+          + f'; utils/png.py reading one {EVAL_IMG_HW[0]}x{EVAL_IMG_HW[1]} '
+          f'PNG: filter 0 on every row {kt["png"][0]:.1f} ms, all five '
+          f'filters {kt["png"][1]:.1f} ms (best of {PNG_REPS})', flush=True)
+    print(f'[14 sweep] python -m jmodt_torch.eval.mot_sweep, grid '
+          f'{json.dumps(SWEEP_GRID)} on perfect detections: MOTA '
+          + ', '.join(f'{r["tag"]} {r["mota"]}' for r in kt['results'])
+          + f'; best {kt["best"]["tag"]}, its tracks byte-equal to '
+          f'python -m jmodt_torch.eval --only_tracking with its flags '
+          f'({kt["sweep_s"]:.2f} s; phase {time.perf_counter() - t0:.1f} s)',
+          flush=True)
+
     rows = []
     for k in KERNELS:
         a = agg[k['name']]
@@ -1759,7 +2155,10 @@ def main() -> int:
                 'batched': bcounts[k['counter']],
                 'train_finetune_step': ft['counts'].get(k['counter'], 0),
                 'train_full_step': full['counts'].get(k['counter'], 0),
-                'eval_frame': ev['eval_frame'].get(k['counter'], 0)},
+                'eval_frame': ev['eval_frame'].get(k['counter'], 0),
+                'train_kitti_step': st[-1]['counts'].get(k['counter'], 0),
+                'train_kitti_full_step': fl['counts'].get(k['counter'],
+                                                          0)},
             'max_abs_err': a['max_abs_err'], 'ms': a['ms'],
             'plain_ms': a['plain_ms'],
             'bound_ms': max(a['t_ops'], a['t_bytes']) * 1e3,

@@ -12,14 +12,21 @@ A reference PointRCNN `.pth` (the upstream project's module names) loads
 the same way: `read_model_state` translates its `model_state` to the
 port's names (`weights.reference_state_to_state_dict`).  `read_head_state`
 and `infer_head_arch` read the link / se heads alone, for the tracker.
+
+`AsyncCheckpointWriter` (the counterpart of the JAX package's orbax
+writer) writes on one background thread.  The optimizer updates the
+parameters in place, so `save` first copies every tensor of the state to
+host memory on the calling thread; a step that runs while the file is
+written cannot reach it.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
-import itertools
-from typing import Any, Dict, Optional, Tuple
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -39,14 +46,58 @@ def checkpoint_state(model: torch.nn.Module, optimizer: Any = None,
                                 if optimizer is not None else None)}
 
 
-def save_checkpoint(state: dict, filename: str) -> str:
-    """Write `<filename>.pth`; returns its path."""
-    path = filename if filename.endswith('.pth') else filename + '.pth'
+def save_checkpoint(state: dict, filename: str, writer: Any = None) -> str:
+    """Write `<filename>.pth`, or with an `AsyncCheckpointWriter` have it
+    written in the background; returns its path."""
+    if writer is not None:
+        return writer.save(state, filename)
+    path = _pth(filename)
     os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
     tmp = path + '.tmp'
     torch.save(state, tmp)
     os.replace(tmp, path)
     return path
+
+
+def _host_copy(obj: Any) -> Any:
+    """`obj` with every tensor copied to host memory (a new tensor, also
+    for one already there)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to('cpu', copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
+
+
+class AsyncCheckpointWriter:
+    """Writes checkpoints on one background thread, in the order they were
+    saved.  `save` returns once the state is copied to host memory;
+    `wait` blocks until every file is written and raises the first
+    failure; `close` waits and stops the thread."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix='ckpt')
+        self._pending: List[Future] = []
+
+    def save(self, state: dict, filename: str) -> str:
+        snapshot = _host_copy(state)
+        self._pending.append(self._pool.submit(save_checkpoint, snapshot,
+                                               filename))
+        return _pth(filename)
+
+    def wait(self) -> None:
+        pending, self._pending = self._pending, []
+        for fut in pending:
+            fut.result()
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            self._pool.shutdown(wait=True)
 
 
 def load_checkpoint(filename: str, model: torch.nn.Module,
@@ -81,10 +132,12 @@ def load_checkpoint(filename: str, model: torch.nn.Module,
     return int(it), int(epoch)
 
 
+def _pth(filename: str) -> str:
+    return filename if filename.endswith('.pth') else filename + '.pth'
+
 
 def _read(filename: str) -> dict:
-    path = filename if filename.endswith('.pth') else filename + '.pth'
-    return torch.load(path, map_location='cpu', weights_only=True)
+    return torch.load(_pth(filename), map_location='cpu', weights_only=True)
 
 
 def _port_names(saved: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

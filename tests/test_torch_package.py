@@ -68,18 +68,34 @@ EVAL_SLICE_MODULES = (
     'jmodt_torch.eval.clear_mot', 'jmodt_torch.eval.__main__')
 
 
-def test_eval_slice_imports_with_jax_blocked():
-    """Every module of the evaluation path imports with JAX, flax and the
-    JAX package blocked from `sys.modules` (an import of any of them
-    raises), and without PIL."""
+KITTI_TRAIN_SLICE_MODULES = (
+    'jmodt_torch.train.trainer', 'jmodt_torch.train.checkpoint',
+    'jmodt_torch.train.__main__', 'jmodt_torch.eval.mot_sweep',
+    'jmodt_torch.utils.kitti_utils', 'jmodt_torch.utils.flops')
+
+
+def _imports_with_jax_blocked(modules):
     blocked = FORBIDDEN + ('PIL',)
     code = ('import sys\n'
             + ''.join(f'sys.modules[{m!r}] = None\n' for m in blocked)
-            + ''.join(f'import {m}\n' for m in EVAL_SLICE_MODULES)
+            + ''.join(f'import {m}\n' for m in modules)
             + 'print("ok")\n')
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and 'ok' in res.stdout, res.stderr
+
+
+def test_eval_slice_imports_with_jax_blocked():
+    """Every module of the evaluation path imports with JAX, flax and the
+    JAX package blocked from `sys.modules` (an import of any of them
+    raises), and without PIL."""
+    _imports_with_jax_blocked(EVAL_SLICE_MODULES)
+
+
+def test_kitti_train_slice_imports_with_jax_blocked():
+    """So do the modules of training from KITTI files, the MOT sweep and
+    the host utilities."""
+    _imports_with_jax_blocked(KITTI_TRAIN_SLICE_MODULES)
 
 
 def test_eval_needs_a_card_unless_asked(monkeypatch, tmp_path):
@@ -98,6 +114,17 @@ def test_eval_needs_a_card_unless_asked(monkeypatch, tmp_path):
     inference.make_recall_fn(device='cpu')
     assert detection_ap.rotate_iou_eval(box, box, 2, device='cpu')[0, 0] \
         == pytest.approx(8.0)
+
+
+def test_mot_sweep_needs_a_card_unless_asked(monkeypatch, tmp_path):
+    from jmodt_torch.eval import mot_sweep
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        mot_sweep.main(['--det_output', str(tmp_path / 'det'),
+                        '--data_root', str(tmp_path), '--ckpt',
+                        str(tmp_path / 'model.pth'), '--output_dir',
+                        str(tmp_path / 'out')])
+    assert not (tmp_path / 'out').exists()
 
 
 def _small_cfg():
@@ -175,6 +202,9 @@ def test_training_needs_a_card_unless_asked(monkeypatch, tmp_path):
             make()
     with pytest.raises(RuntimeError, match='no CUDA device'):
         train_main.main(['--small', '--output_dir', str(tmp_path)])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        train_main.main(['--small', '--data_root', str(tmp_path),
+                         '--output_dir', str(tmp_path)])
     train_step.make_train_step(cfg, model, opt, device='cpu')
     trainer.Trainer(cfg, model, opt, str(tmp_path), device='cpu')
 
