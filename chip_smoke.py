@@ -178,8 +178,25 @@ Phases, in order; any failure exits non-zero:
             files equal to `python -m jmodt_torch.eval --only_tracking`
             with its flags.
 
+15. parallel 2 ranks on cuda:0 over gloo (spawned,
+            the kernels loaded from phase 1's build, not rebuilt) against
+            one process: 3 finetune steps of 4 pairs (bfloat16) with
+            every rank's launches equal to the one process's, ms a step,
+            collectives and ms in them, peak memory a rank; then in
+            float32 with TF32 off one finetune step of 4 pairs and one
+            full-losses step of 2 pairs: loss terms, parameters (but
+            elements whose gradient is float32 noise, at most 1e-6 of the
+            largest) and BatchNorm statistics within 1e-5 of scale, the
+            ranks bit-equal (also over NCCL, a rank a card, when there are
+            several cards).  Then the lockstep step (S = 4, RPN.MEGA_SA)
+            split over [cuda:0, cuda:0] (and two cards when there are):
+            float32 rows and states equal to the unsplit step's (tid, emit
+            and integers exact, floats within 1e-4), K5 3 launches a part
+            a frame, and ms a lockstep frame split and unsplit
+            (bfloat16).
+
 Prints a {"kernels": [...]} line (launches from phase 6; per path from
-phases 3, 6, 8, 13 and per training step from 11, 12 and 14; per-call
+phases 3, 6, 8, 13 and per training step from 11, 12, 14 and 15; per-call
 times and bounds; K1's largest placeable cluster, its cluster size at
 each N and us a step at level 0; K2's plan, us a step and warp sweep per
 call at S = 1 and 4; K3's plan and library
@@ -430,7 +447,7 @@ def fps_batched_with(xyz, npoint, warps):
         ppt *= 2
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     kernels.launch('fps_batched', 'jmodt_fps_batched', xyz.data_ptr(), b, n,
-                   npoint, warps, ppt, out.data_ptr())
+                   npoint, warps, ppt, out.data_ptr(), device=xyz.device)
     return out
 
 
@@ -768,7 +785,7 @@ def k5_fps_floor(xyz, npoint, nsamples, folded):
         torch.cuda.get_device_properties(xyz.device).multi_processor_count)
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     kernels.launch('fps', 'jmodt_fps', xyz.data_ptr(), b, n, npoint,
-                   *plan.fps, out.data_ptr())
+                   *plan.fps, out.data_ptr(), device=xyz.device)
     return out
 
 
@@ -1943,6 +1960,273 @@ def kitti_train(tmp):
                 run_s=run_s, sweep_s=sweep_s, pairs=len(dataset))
 
 
+# ----------------------------------------------------------------- phase 15
+
+DP_RANKS = 2
+DP_TOL = 1e-5           # loss terms, parameters and BatchNorm statistics
+# a gradient element at most this share of the largest is float32 noise:
+# Adam's first step moves it by up to a learning rate along the noise's
+# sign, so its value after the step is no function of the step's inputs
+DP_NOISE = 1e-6
+# a gradient's scale floored at this share of the largest, as
+# tests/test_torch_train_step.py floors it: a float32 backward resolves a
+# gradient only to about float32's epsilon of the largest
+DP_GRAD_FLOOR = 1e-2
+DP_TIMING_STEPS = 3
+DP_FULL_PAIRS = 2
+SPLIT_TOL = 1e-4
+SPLIT_FRAMES = 3
+
+
+def train_state(cfg):
+    """The phase 11 weights (detector seed 0, link / se seed 1) on the
+    host."""
+    model, _, _ = train_parts(cfg)
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def dp_gaps(ref, got):
+    """How far run `got` lies from run `ref` after one step: the largest
+    loss-term error, parameter error and BatchNorm-statistic error of
+    scale (max(1, |ref|)), the gradient error of its own scale (floored at
+    DP_GRAD_FLOOR of the largest), and how many parameter elements were
+    skipped: those whose gradient is float32 noise (DP_NOISE of the
+    largest) or has opposite signs in the two runs.  Adam's first step
+    moves an element by about one learning rate along its gradient's sign
+    whatever its size, so a sign that rounding decides is no function of
+    the step."""
+    gaps = {'terms': 0.0, 'grads': 0.0, 'params': 0.0, 'stats': 0.0,
+            'skipped': 0, 'worst_params': None, 'worst_stats': None}
+    for k, v in ref['steps'][-1]['tb'].items():
+        gaps['terms'] = max(gaps['terms'], abs(got['steps'][-1]['tb'][k] - v)
+                            / max(1.0, abs(v)))
+    grads = {k: g for k, g in ref['grads'].items() if g is not None}
+    top = max(float(g.abs().max()) for g in grads.values())
+    skip = {}
+    for k, want in grads.items():
+        g = got['grads'][k]
+        check(g is not None, f'{k} has a gradient in one run only')
+        scale = max(float(want.abs().max()), DP_GRAD_FLOOR * top)
+        gaps['grads'] = max(gaps['grads'],
+                            float((g - want).abs().max()) / scale)
+        skip[k] = ((want.abs() <= DP_NOISE * top)
+                   | (torch.sign(g) != torch.sign(want)))
+        gaps['skipped'] += int(skip[k].sum())
+    for k, want in ref['state'].items():
+        diff = (got['state'][k].double() - want.double()).abs()
+        if k in skip:
+            diff = torch.where(skip[k], torch.zeros_like(diff), diff)
+        part = 'stats' if 'running' in k else 'params'
+        e = float(diff.max()) / max(1.0, float(want.abs().max()))
+        if e > gaps[part]:
+            gaps[part], gaps['worst_' + part] = e, k
+    return gaps
+
+
+def dp_compare(one, ulp, ranks, finetune, what):
+    """Phase 15's gates for the ranks against the one-process run `one`:
+    the kernels not rebuilt, every step's launches equal, the ranks'
+    states bit-equal, BatchNorm statistics within DP_TOL of scale; for the
+    finetune every loss term and parameter within DP_TOL of scale, for
+    full losses the RPN's terms.  With random weights the full-losses step
+    is discontinuous at float32's resolution (its proposals tie within
+    rounding, so the RoIs sampled from them and the RCNN after them move
+    with any rounding), and cuBLAS's per-row results depend on the batch's
+    size, so there the RCNN's terms, the parameters and the gradients are
+    measured beside the gap of `ulp`, the one-process step on the batch's
+    points moved by one float32 ulp, and not gated.  Returns (the ranks'
+    gaps, the one-ulp gaps)."""
+    for r in ranks:
+        check(r['build_s'] == 0.0, f'{what}: rank {r["rank"]} built the '
+              f'kernels ({r["build_s"]:.1f} s)')
+        for i, (a, b) in enumerate(zip(one['steps'], r['steps'])):
+            check(a['launches'] == b['launches'], f'{what}: rank '
+                  f'{r["rank"]} step {i + 1} launched {b["launches"]}, one '
+                  f'process {a["launches"]}')
+        for k, v in ranks[0]['state'].items():
+            check(torch.equal(v, r['state'][k]), f'{what}: {k} differs '
+                  f'between ranks 0 and {r["rank"]}')
+    gaps, self_gaps = dp_gaps(one, ranks[0]), dp_gaps(one, ulp)
+    check(gaps['stats'] <= DP_TOL, f'{what}: BatchNorm statistics err '
+          f'{gaps["stats"]} ({gaps["worst_stats"]})')
+    want, got = one['steps'][-1]['tb'], ranks[0]['steps'][-1]['tb']
+    for k, v in want.items():
+        if finetune or k.startswith('rpn_'):
+            e = abs(got[k] - v) / max(1.0, abs(v))
+            check(e <= DP_TOL, f'{what}: {k} {got[k]}, one process {v}')
+    if finetune:
+        check(gaps['params'] <= DP_TOL, f'{what}: parameters err '
+              f'{gaps["params"]} ({gaps["worst_params"]})')
+    return gaps, self_gaps
+
+
+def dp_timing(runs):
+    """(ms a step of the steps after the first, collectives a step, ms in
+    them) of each run."""
+    out = []
+    for r in runs:
+        later = r['steps'][1:]
+        out.append((np.mean([s['ms'] for s in later]),
+                    later[-1]['collectives'],
+                    np.mean([s['collective_ms'] for s in later])))
+    return out
+
+
+def data_parallel_steps(tmp):
+    """Phase 15, first half: DP_RANKS ranks on cuda:0 over gloo (and one a
+    card over NCCL when there are several) against one process."""
+    import os
+    from jmodt_torch.train import data_parallel
+    res = {'compare': []}
+    tf32 = os.environ.get('NVIDIA_TF32_OVERRIDE')
+    # the ranks compute float32 as this process does since phase 4: no TF32
+    os.environ['NVIDIA_TF32_OVERRIDE'] = '0'
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = train_cfg(True, 'bfloat16', reid_fg_thresh=0.0)
+        state = train_state(cfg)
+        batches = pair_batches(cfg, TRAIN_PAIRS, range(300, 300 +
+                                                       DP_TIMING_STEPS))
+        torch.cuda.reset_peak_memory_stats()
+        one = data_parallel.run_steps('cuda', cfg, state, batches,
+                                      f'{tmp}/one_bf16')
+        ranks = data_parallel.on_ranks(DP_RANKS, cfg, state, batches,
+                                       f'{tmp}/ranks_bf16', device='cuda:0')
+        for r in ranks:
+            for i, (a, b) in enumerate(zip(one['steps'], r['steps'])):
+                check(a['launches'] == b['launches'], f'bf16 finetune: rank '
+                      f'{r["rank"]} step {i + 1} launched {b["launches"]}, '
+                      f'one process {a["launches"]}')
+                check(all(np.isfinite(v) for v in b['tb'].values()),
+                      f'bf16 finetune: rank {r["rank"]} step {i + 1} '
+                      f'non-finite terms {b["tb"]}')
+        check_counts(ranks[0]['steps'][-1]['launches'], PER_STEP_FINETUNE,
+                     'data-parallel finetune rank 0')
+        res['timing'] = dp_timing([one] + ranks)
+        res['peak_gib'] = [one['peak_gib']] + [r['peak_gib'] for r in ranks]
+        res['launches'] = ranks[0]['steps'][-1]['launches']
+        res['loss'] = (one['steps'][-1]['tb']['loss'],
+                       ranks[0]['steps'][-1]['tb']['loss'])
+        del state, batches
+        backends = [('gloo', 'cuda:0')]
+        if torch.cuda.device_count() > 1:
+            backends.append(('nccl', None))
+        for finetune, pairs in ((True, TRAIN_PAIRS), (False, DP_FULL_PAIRS)):
+            what = 'finetune' if finetune else 'full losses'
+            cfg32 = train_cfg(finetune, 'float32',
+                              0.0 if finetune else None)
+            state = train_state(cfg32)
+            batch = pair_batches(cfg32, pairs, (310,))
+            one = data_parallel.run_steps('cuda', cfg32, state, batch,
+                                          f'{tmp}/one_{finetune}')
+            check(one['steps'][0]['tb']['loss'] > 0, f'{what}: loss 0')
+            moved = [dict(b, pts_input=np.nextafter(
+                b['pts_input'], np.float32(np.inf)).astype(np.float32))
+                for b in batch]
+            ulp = data_parallel.run_steps('cuda', cfg32, state, moved,
+                                          f'{tmp}/ulp_{finetune}')
+            for backend, device in backends:
+                ranks = data_parallel.on_ranks(
+                    DP_RANKS, cfg32, state, batch,
+                    f'{tmp}/{backend}_{finetune}', device=device)
+                gaps = dp_compare(one, ulp, ranks, finetune,
+                                  f'{what} over {backend}')
+                res['compare'].append((what, backend, pairs, gaps,
+                                       one['steps'][0]['launches'],
+                                       ranks[0]['steps'][0]['collectives']))
+    finally:
+        if tf32 is None:
+            os.environ.pop('NVIDIA_TF32_OVERRIDE')
+        else:
+            os.environ['NVIDIA_TF32_OVERRIDE'] = tf32
+    return res
+
+
+def split_lockstep(frames):
+    """Phase 15, second half: make_batched_joint_step at STREAMS streams
+    under RPN.MEGA_SA split over [cuda:0, cuda:0] (and over two cards when
+    there are several) against the unsplit step: float32 rows and states
+    over SPLIT_FRAMES frames, K5's launches a part; then bfloat16 ms a
+    lockstep frame, split and unsplit."""
+    from jmodt_torch.ops import kernels
+    from jmodt_torch.pipeline import make_batched_joint_step
+    from jmodt_torch.tracking.device_tracker import init_batched_state
+    splits = [['cuda:0', 'cuda:0']]
+    if torch.cuda.device_count() > 1:
+        splits.append(['cuda:0', 'cuda:1'])
+    res = {'errs': {}, 'ms': {}}
+    for dtype in ('float32', 'bfloat16'):
+        cfg = mega_cfg(dtype)
+        feat_dim = cfg.RCNN.SA_CONFIG.MLPS[-1][-1]
+        model, head, kw = joint_parts(cfg)
+        steps = {'unsplit': make_batched_joint_step(cfg, model, head, **kw)}
+        states = {'unsplit': new_state(cfg, streams=STREAMS)}
+        for devs in splits:
+            name = '+'.join(devs)
+            steps[name] = make_batched_joint_step(cfg, model, head,
+                                                  devices=devs, **kw)
+            states[name] = init_batched_state(STREAMS, JOINT['max_tracks'],
+                                              feat_dim, devices=devs)
+        inputs = [lockstep_inputs(frames, t, STREAMS)
+                  for t in range(SPLIT_FRAMES + 1)]
+        packs = {}
+        for name, step in steps.items():
+            parts = 1 if name == 'unsplit' else 2
+            if dtype == 'bfloat16':          # warm-up, then timed
+                states[name], _ = step(states[name], *inputs[-1])
+            kernels.launches.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            packs[name] = []
+            for t in range(SPLIT_FRAMES):
+                states[name], packed = step(states[name], *inputs[t])
+                packs[name].append(packed)
+                k5 = kernels.launches['sa_level']
+                check(k5 == 3 * parts * (t + 1), f'split lockstep {name} '
+                      f'({dtype}): K5 launched {k5} times in {t + 1} frames,'
+                      f' expected {3 * parts * (t + 1)}')
+            torch.cuda.synchronize()
+            res['ms'][(name, dtype)] = ((time.perf_counter() - t0) * 1e3
+                                        / SPLIT_FRAMES)
+        for name in steps:
+            check(all(bool(torch.isfinite(p).all()) for p in packs[name]),
+                  f'split lockstep {name} ({dtype}): non-finite rows')
+        if dtype != 'float32':
+            continue
+        want = states['unsplit']
+        for name in steps:
+            if name == 'unsplit':
+                continue
+            err = 0.0
+            for t, (got, ref) in enumerate(zip(packs[name],
+                                               packs['unsplit'])):
+                got, ref = got.cpu(), ref.cpu()
+                check(torch.equal(got[..., 0], ref[..., 0]) and torch.equal(
+                    got[..., 9], ref[..., 9]), f'split lockstep {name} frame '
+                    f'{t}: tid / emit differ from the unsplit step')
+                err = max(err, scale_err(got[..., 1:9], ref[..., 1:9]))
+            parts = states[name]
+            for k in want._fields:
+                if k == 'mats':
+                    continue
+                got = torch.cat([getattr(p, k).cpu() for p in parts])
+                ref = getattr(want, k).cpu()
+                if ref.is_floating_point():
+                    err = max(err, scale_err(got, ref))
+                else:
+                    check(torch.equal(got, ref), f'split lockstep {name}: '
+                          f'state {k} differs from the unsplit step')
+            check(err <= SPLIT_TOL, f'split lockstep {name}: float err {err}')
+            res['errs'][name] = err
+        res['emitted'] = sum(int((p[..., 9] > 0.5).sum())
+                             for p in packs['unsplit'])
+        check(res['emitted'] > 0, 'split lockstep: no row emitted')
+        del steps, states, packs, model, head
+    return res
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2143,6 +2427,52 @@ def main() -> int:
           f'({kt["sweep_s"]:.2f} s; phase {time.perf_counter() - t0:.1f} s)',
           flush=True)
 
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dp = data_parallel_steps(tmp)
+    (one_ms, _, _), *rank_t = dp['timing']
+    print(f'[15 data parallel] {DP_RANKS} ranks on cuda:0 over gloo vs one '
+          f'process, Config() finetune with REID.FG_THRESH 0 (bfloat16), '
+          f'{TRAIN_PAIRS} pairs a step ({TRAIN_PAIRS // DP_RANKS} a rank), '
+          f'{DP_TIMING_STEPS} steps: ms a step (steps 2-{DP_TIMING_STEPS}, '
+          f'synchronized wall) one process {one_ms:.2f}, ranks '
+          + ', '.join(f'{m:.2f}' for m, _, _ in rank_t)
+          + '; collectives a rank-step '
+          + ', '.join(f'{c} ({cm:.2f} ms in them)' for _, c, cm in rank_t)
+          + '; peak memory GiB one process '
+          f'{dp["peak_gib"][0]:.2f}, ranks '
+          + ', '.join(f'{g:.2f}' for g in dp['peak_gib'][1:])
+          + f'; launches a rank-step {dp["launches"]}, each step equal to '
+          f'the one process\'s; loss step {DP_TIMING_STEPS} one process '
+          f'{dp["loss"][0]:.6g}, rank 0 {dp["loss"][1]:.6g}', flush=True)
+    for what, backend, pairs, (gaps, ulp), launches, coll in dp['compare']:
+        rpn = ('' if what == 'finetune' else
+               'the RPN\'s loss terms within 1e-5 (gated); all ')
+        print(f'[15 data parallel] float32 (TF32 off) {what}, {pairs} pairs,'
+              f' {DP_RANKS} ranks over {backend} vs one process (in '
+              'brackets: one process vs itself on the points moved by one '
+              f'ulp): {rpn}loss terms err {gaps["terms"]:.3g} '
+              f'({ulp["terms"]:.3g}), parameters {gaps["params"]:.3g} '
+              f'({ulp["params"]:.3g}; {gaps["skipped"]} and {ulp["skipped"]}'
+              ' elements of noise or flipped-sign gradients aside), '
+              f'BatchNorm statistics {gaps["stats"]:.3g} ({ulp["stats"]:.3g}'
+              f'), gradients {gaps["grads"]:.3g} ({ulp["grads"]:.3g}) of '
+              f'their scale; ranks bit-equal; launches a rank {launches} '
+              f'equal to one process\'s; {coll} collectives a rank',
+              flush=True)
+    sp = split_lockstep(frames)
+    print(f'[15 split] make_batched_joint_step, S={STREAMS}, RPN.MEGA_SA, '
+          f'{SPLIT_FRAMES} frames split over '
+          + ', '.join(n for n in sp['errs'])
+          + ' vs unsplit: float32 tid, emit and state integers equal, '
+          'rows and state floats err '
+          + ', '.join(f'{e:.3g}' for e in sp['errs'].values())
+          + f' ({sp["emitted"]} rows emitted); K5 3 launches a part a frame; '
+          'ms a lockstep frame (bfloat16, synchronized wall) '
+          + ', '.join(f'{n} {m:.2f}' for (n, d), m in sp['ms'].items()
+                      if d == 'bfloat16')
+          + f' ({time.perf_counter() - t0:.1f} s)', flush=True)
+
     rows = []
     for k in KERNELS:
         a = agg[k['name']]
@@ -2158,7 +2488,9 @@ def main() -> int:
                 'eval_frame': ev['eval_frame'].get(k['counter'], 0),
                 'train_kitti_step': st[-1]['counts'].get(k['counter'], 0),
                 'train_kitti_full_step': fl['counts'].get(k['counter'],
-                                                          0)},
+                                                          0),
+                'train_finetune_rank_step': dp['launches'].get(
+                    k['counter'], 0)},
             'max_abs_err': a['max_abs_err'], 'ms': a['ms'],
             'plain_ms': a['plain_ms'],
             'bound_ms': max(a['t_ops'], a['t_bytes']) * 1e3,

@@ -5,6 +5,10 @@ indexing: the reference's `pred_reg[fg_mask]` becomes a weighted mean with
 `fg_mask` weights, which is the same value for the mean-reduced losses used
 here.  A NaN in a masked-out row still reaches the sum (NaN * 0 is NaN), as
 in the JAX package; the train step zeroes non-finite rows first.
+
+Every sum over the batch is `batch_sum`: when the batch is split over ranks
+(`parallel.mesh`), numerators and denominators are summed over them, so a
+mean is the global batch's and not a mean of per-rank means.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from jmodt_torch.parallel import mesh
 
 
 def sigmoid_cross_entropy_with_logits(logits, labels):
@@ -32,14 +38,20 @@ def sigmoid_focal_loss(logits, targets, weights, alpha=0.25, gamma=2.0):
     return modulating * alpha_w * ce * weights
 
 
+def batch_sum(x):
+    """torch.sum(x) over the whole batch: summed over the ranks when the
+    batch is split, each rank's gradient its own rows' share."""
+    return mesh.loss_sum(torch.sum(x))
+
+
 def dice_loss(logits, target, ignore_target=-1):
     """1 - sum(min(p, t)) / max(1, sum(max(p, t))) over the entries whose
     target is not `ignore_target`."""
     x = torch.sigmoid(logits.reshape(-1))
     t = target.reshape(-1).to(x.dtype)
     mask = (t != ignore_target).to(x.dtype)
-    num = torch.sum(torch.minimum(x, t) * mask)
-    den = torch.clamp(torch.sum(torch.maximum(x, t) * mask), min=1.0)
+    num = batch_sum(torch.minimum(x, t) * mask)
+    den = torch.clamp(batch_sum(torch.maximum(x, t) * mask), min=1.0)
     return 1.0 - num / den
 
 
@@ -52,7 +64,7 @@ def smooth_l1(pred, target):
 def masked_mean(values, mask):
     """Mean over the mask-selected elements; 0 when the mask is empty."""
     mask = mask.to(values.dtype)
-    return torch.sum(values * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return batch_sum(values * mask) / torch.clamp(batch_sum(mask), min=1.0)
 
 
 def cross_entropy_int_labels(logits, labels, mask):

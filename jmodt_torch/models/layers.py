@@ -16,11 +16,14 @@ heads emit float32.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from jmodt_torch.parallel import mesh
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
@@ -48,7 +51,13 @@ class BatchNorm(nn.Module):
     leading axis and the biased variance E[x^2] - E[x]^2 clipped at 0; the
     normalization in float32, cast back to x's dtype; and the running
     statistics become 0.9 old + 0.1 batch.  (`F.batch_norm` would update
-    the running variance with the unbiased variance.)"""
+    the running variance with the unbiased variance.)  The sums of x and
+    x^2 accumulate in float64 before the statistics round to float32, so
+    the order of the sum does not move them: when the batch is split over
+    ranks (`parallel.mesh`), the sums and the row count are summed over
+    them, gradients flowing through the sum, and the statistics, the
+    running averages and the backward are the global batch's, as flax
+    computes them under GSPMD, up to float32 rounding."""
 
     def __init__(self, channels: int, device=None):
         super().__init__()
@@ -57,6 +66,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, **kw))
         self.register_buffer('running_mean', torch.zeros(channels, **kw))
         self.register_buffer('running_var', torch.ones(channels, **kw))
+        self.updates = 0       # training-mode calls: running-stat updates
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
@@ -68,8 +78,17 @@ class BatchNorm(nn.Module):
     def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         axes = tuple(range(x.dim() - 1))
-        mean = xf.mean(axes)
-        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        c = x.shape[-1]
+        sums = mesh.stat_sum(torch.cat([
+            torch.sum(xf, axes, dtype=torch.float64),
+            torch.sum(xf * xf, axes, dtype=torch.float64),
+            torch.full((1,), xf.numel() // c, dtype=torch.float64,
+                       device=x.device)]))
+        mean64 = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean64 * mean64,
+                          min=0.0).to(xf.dtype)
+        mean = mean64.to(xf.dtype)
+        self.updates += 1
         with torch.no_grad():
             self.running_mean.copy_(BN_MOMENTUM * self.running_mean
                                     + (1 - BN_MOMENTUM) * mean.to(
@@ -81,14 +100,52 @@ class BatchNorm(nn.Module):
         return ((xf - mean) * mul + self.bias.to(xf.dtype)).to(x.dtype)
 
 
+@contextlib.contextmanager
+def per_call_batches(*modules: nn.Module):
+    """Inside, BatchNorm and dropout in `modules` take each call's input as
+    a batch of its own (the ReID heads' per-pair tensors), not as this
+    rank's rows of a batch split over ranks (`mesh.rank_local`).  Each
+    training-mode call still moves a BatchNorm's running statistics, as in
+    one process; with the batch split over ranks they become, on exit,
+    what one process leaves after every rank's calls in rank order: with
+    K calls a rank, momentum m and r0 before, m^(N K) r0 plus the sum over
+    ranks of m^((N - 1 - r) K) (r_r - m^K r0)."""
+    split = mesh.split()
+    bns = [b for mod in modules for b in mod.modules()
+           if isinstance(b, BatchNorm)]
+    before = [(b.updates, b.running_mean.clone(), b.running_var.clone())
+              for b in bns]
+    with mesh.rank_local():
+        yield
+    if split is None or not bns:
+        return
+    rank, world = split
+    with torch.no_grad():
+        parts, starts = [], []
+        for b, (n0, mean0, var0) in zip(bns, before):
+            k = b.updates - n0
+            for now, start in ((b.running_mean, mean0), (b.running_var,
+                                                         var0)):
+                parts.append(BN_MOMENTUM ** ((world - 1 - rank) * k)
+                             * (now - BN_MOMENTUM ** k * start))
+                starts.append((now, BN_MOMENTUM ** (world * k) * start))
+        folded = mesh.loss_sum(torch.cat(parts))
+        for (now, start), part in zip(starts, folded.split(
+                [now.numel() for now, _ in starts])):
+            now.copy_(start + part)
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax's `nn.Dropout`: keep each entry with probability 1 - rate and
     scale the kept ones by 1 / (1 - rate); the draws come from
     `generator` (on x's device), or from torch's default one when it is
-    None."""
+    None.  When the batch is split over ranks, x's leading dim is this
+    rank's rows: the mask is drawn for the global batch and cut to them."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = (mesh.global_rows(x.shape[0]),) + tuple(x.shape[1:])
+    mask = mesh.local_rows(torch.rand(shape, generator=generator,
+                                      device=x.device)) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -160,10 +217,23 @@ class HeadMLP(nn.Module):
         self.n_hidden = len(hidden)
         self.add_module('Dense_0', nn.Linear(cin, out_features, device=device))
 
+    def _drops(self) -> bool:
+        return self.training and self.dp_ratio > 0 and self.n_hidden > 0
+
+    def skip_draws(self, lead_shape, generator: Optional[torch.Generator]
+                   ) -> None:
+        """Draw and drop the dropout mask that forward draws for an input
+        of leading shape `lead_shape`: `generator` moves on as if forward
+        had run."""
+        if self._drops():
+            width = self.PointwiseLayer_0.dense.out_features
+            torch.rand(tuple(lead_shape) + (width,), generator=generator,
+                       device=self.Dense_0.weight.device)
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.n_hidden):
             x = getattr(self, f'PointwiseLayer_{i}')(x)
-            if i == 0 and self.training and self.dp_ratio > 0:
+            if i == 0 and self._drops():
                 x = dropout(x, self.dp_ratio, generator)
         return dense(self.Dense_0, x, self.dtype).float()

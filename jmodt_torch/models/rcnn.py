@@ -19,9 +19,11 @@ from torch import nn
 
 from jmodt_torch.config import Config
 from jmodt_torch.models.backbone import backbone_out_channels
-from jmodt_torch.models.layers import HeadMLP, PointwiseMLP, compute_dtype
+from jmodt_torch.models.layers import (HeadMLP, PointwiseMLP, compute_dtype,
+                                       per_call_batches)
 from jmodt_torch.models.pointnet2 import SAModuleMSG
 from jmodt_torch.models.proposal import first_k_indices
+from jmodt_torch.parallel import mesh
 
 
 def rcnn_reg_channels(cfg: Config) -> int:
@@ -44,6 +46,9 @@ class CorrelationHead(nn.Module):
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         return self.mlp(x, generator)
+
+    def skip_draws(self, lead_shape, generator=None) -> None:
+        self.mlp.skip_draws(lead_shape, generator)
 
 
 def unique_tid_mean_features(tids: torch.Tensor, feats: torch.Tensor):
@@ -158,39 +163,54 @@ class RCNN(nn.Module):
         interleaved as even / odd rows of `gt_tids` (B, ROI_PER_IMAGE);
         returns 'reid_{link, gt_link, link_mask, start, gt_start,
         start_mask, end, gt_end, end_mask}', stacked over the B / 2 pairs
-        and each padded to ROI_PER_IMAGE unique ids."""
+        and each padded to ROI_PER_IMAGE unique ids.
+
+        The heads run pair by pair, so their dropout masks and BatchNorm
+        statistics are each pair's own (`layers.per_call_batches`); when
+        the batch is split over ranks (`parallel.mesh`) the dropout
+        generator first moves past the masks of the pairs on the ranks
+        before this one."""
         num_frames, n_roi = gt_tids.shape
         assert num_frames % 2 == 0, 'pair training needs an even frame count'
         feats = feat_vec.reshape(num_frames, n_roi, -1)
         link_head, se_head = self.link_layer, self.se_layer
+        split = mesh.split()
+        earlier = split[0] * num_frames // 2 if split else 0
         pairs = []
-        for i in range(0, num_frames, 2):
-            put, pvalid, pfeat = unique_tid_mean_features(gt_tids[i],
-                                                          feats[i])
-            nut, nvalid, nfeat = unique_tid_mean_features(gt_tids[i + 1],
-                                                          feats[i + 1])
-            pair_ok = pvalid.any() & nvalid.any()
-            pvalid, nvalid = pvalid & pair_ok, nvalid & pair_ok
-            entry_ok = pvalid[:, None] & nvalid[None, :]
-
-            cor = (pfeat[:, None, :] - nfeat[None, :, :]).abs()  # (U, U, C)
-            link = masked_bidirectional_softmax(
-                link_head(cor, generator)[..., 0], pvalid, nvalid)
-            gt_link = ((put[:, None] == nut[None, :]) & entry_ok).to(
-                cor.dtype)
-            zero = torch.zeros_like(put)
-            gt_start = torch.where(nvalid, 1.0 - gt_link.sum(0), zero)
-            gt_end = torch.where(pvalid, 1.0 - gt_link.sum(1), zero)
-            pw, nw = pvalid.to(cor.dtype), nvalid.to(cor.dtype)
-            start_feat = ((cor * pw[:, None, None]).sum(0)
-                          / torch.clamp(pw.sum(), min=1.0))      # (U, C)
-            end_feat = ((cor * nw[None, :, None]).sum(1)
-                        / torch.clamp(nw.sum(), min=1.0))
-            pairs.append(dict(
-                link=link, gt_link=gt_link, link_mask=entry_ok,
-                start=se_head(start_feat, generator)[..., 0],
-                gt_start=gt_start, start_mask=nvalid,
-                end=se_head(end_feat, generator)[..., 0], gt_end=gt_end,
-                end_mask=pvalid))
+        with per_call_batches(link_head, se_head):
+            for _ in range(earlier):
+                link_head.skip_draws((n_roi, n_roi), generator)
+                se_head.skip_draws((n_roi,), generator)
+                se_head.skip_draws((n_roi,), generator)
+            for i in range(0, num_frames, 2):
+                pairs.append(self._pair(gt_tids[i], gt_tids[i + 1], feats[i],
+                                        feats[i + 1], generator))
         return {f'reid_{k}': torch.stack([p[k] for p in pairs])
                 for k in pairs[0]}
+
+    def _pair(self, prev_tids, next_tids, prev_feats, next_feats, generator):
+        """The link / start-end outputs of one (prev, next) frame pair."""
+        link_head, se_head = self.link_layer, self.se_layer
+        put, pvalid, pfeat = unique_tid_mean_features(prev_tids, prev_feats)
+        nut, nvalid, nfeat = unique_tid_mean_features(next_tids, next_feats)
+        pair_ok = pvalid.any() & nvalid.any()
+        pvalid, nvalid = pvalid & pair_ok, nvalid & pair_ok
+        entry_ok = pvalid[:, None] & nvalid[None, :]
+
+        cor = (pfeat[:, None, :] - nfeat[None, :, :]).abs()      # (U, U, C)
+        link = masked_bidirectional_softmax(
+            link_head(cor, generator)[..., 0], pvalid, nvalid)
+        gt_link = ((put[:, None] == nut[None, :]) & entry_ok).to(cor.dtype)
+        zero = torch.zeros_like(put)
+        gt_start = torch.where(nvalid, 1.0 - gt_link.sum(0), zero)
+        gt_end = torch.where(pvalid, 1.0 - gt_link.sum(1), zero)
+        pw, nw = pvalid.to(cor.dtype), nvalid.to(cor.dtype)
+        start_feat = ((cor * pw[:, None, None]).sum(0)
+                      / torch.clamp(pw.sum(), min=1.0))          # (U, C)
+        end_feat = ((cor * nw[None, :, None]).sum(1)
+                    / torch.clamp(nw.sum(), min=1.0))
+        return dict(link=link, gt_link=gt_link, link_mask=entry_ok,
+                    start=se_head(start_feat, generator)[..., 0],
+                    gt_start=gt_start, start_mask=nvalid,
+                    end=se_head(end_feat, generator)[..., 0], gt_end=gt_end,
+                    end_mask=pvalid)

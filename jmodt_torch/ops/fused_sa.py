@@ -184,7 +184,8 @@ def grouped_gather_mlp_max(feats1: torch.Tensor, idx: torch.Tensor,
     kernels.launch('grouped_gather_mlp_max', 'jmodt_grouped_gather_mlp_max',
                    feats1.data_ptr(), idx.data_ptr(), cxw.data_ptr(),
                    b1.data_ptr(), b, n, m, s, n_rest, plan.smem,
-                   plan.col_split, w_ptrs, b_ptrs, dims, out.data_ptr())
+                   plan.col_split, w_ptrs, b_ptrs, dims, out.data_ptr(),
+                   device=feats1.device)
     return out
 
 

@@ -107,7 +107,8 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor):
     idx = torch.empty((b, n, 3), dtype=torch.int32, device=unknown.device)
     kernels.launch('three_nn', 'jmodt_three_nn', unknown.data_ptr(),
                    known.data_ptr(), b, n, m, plan.lanes, plan.queries,
-                   plan.threads, dist.data_ptr(), idx.data_ptr())
+                   plan.threads, dist.data_ptr(), idx.data_ptr(),
+                   device=unknown.device)
     return dist, idx
 
 

@@ -6,8 +6,9 @@ per source, all started together, and linked into one shared library under
 `build/` at the repo root, named by a hash of the sources; a later process
 finds it there.  The library is loaded with `ctypes`: every pointer and the
 stream go in as `c_void_p`, every C entry returns `cudaGetLastError()`, and
-`launch` raises if that is not 0.  Kernels launch on PyTorch's current
-stream and allocate nothing; the wrappers allocate with `torch.empty`.
+`launch` raises if that is not 0.  Kernels launch on the current stream
+of their tensors' card and allocate nothing; the wrappers allocate with
+`torch.empty`.
 
 `launches` counts, per kernel name, the launches made through `launch`, so
 a caller can show that a path went through the kernels.
@@ -122,12 +123,16 @@ def _library() -> ctypes.CDLL:
     return _lib[0]
 
 
-def launch(counter: str, entry: str, *args) -> None:
-    """Call C entry `entry` on the current stream (appended as the last
-    argument), raise on a CUDA error, and count one launch of `counter`."""
+def launch(counter: str, entry: str, *args, device: torch.device) -> None:
+    """Call C entry `entry` on `device`, the card its tensors lie on, and
+    its current stream (appended as the last argument), raise on a CUDA
+    error, and count one launch of `counter`.  The runtime launches on its
+    current device, which need not be `device` where one process drives
+    several cards."""
     lib = _library()
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, entry)(*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(*args, stream)
     if err != 0:
         msg = lib.jmodt_error_string(err).decode()
         raise RuntimeError(f'{entry} failed: CUDA error {err} ({msg})')

@@ -254,5 +254,5 @@ def sa_level_fused(xyz: torch.Tensor, feats: Optional[torch.Tensor],
         ptrs(*[t.data_ptr() for t in tables]),
         ptrs(*[t.data_ptr() for t in cxws]),
         ptrs(*[t.data_ptr() for t in nbrs]), counters.data_ptr(),
-        idx.data_ptr(), new_xyz.data_ptr(), pooled.data_ptr())
+        idx.data_ptr(), new_xyz.data_ptr(), pooled.data_ptr(), device=dev)
     return new_xyz, pooled, idx

@@ -4,9 +4,10 @@ score, and the device tracker's step, packed into one (T, 10) tensor of
 rows [tid, x, y, z, h, w, l, ry, score, emit].
 
 `make_joint_step` steps one stream; `make_batched_joint_step` steps S
-streams in lockstep; `make_scan_step` runs K frames of one stream in one
-call.  `JointPipeline` and `ScanPipeline` stream frames through them and
-read the rows back a few frames, or a chunk, later.
+streams in lockstep, on one device or split over several; `make_scan_step`
+runs K frames of one stream in one call.  `JointPipeline` and
+`ScanPipeline` stream frames through them and read the rows back a few
+frames, or a chunk, later.
 
 The heads are `nn.Module`s that hold their weights; the JAX package passes
 its weights as runtime arguments instead, for its TPU runtime's program
@@ -15,7 +16,9 @@ cache, which is no part of the semantics.
 
 from __future__ import annotations
 
+import copy
 from collections import deque
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -84,6 +87,7 @@ def make_joint_step(cfg: Config, model: PointRCNN, link_head: nn.Module,
 def make_batched_joint_step(cfg: Config, model: PointRCNN,
                             link_head: nn.Module, track_k: int = 16,
                             det_score_thresh: float = 0.85, device=None,
+                            devices: Optional[Sequence] = None,
                             **tracker_kw):
     """S independent streams advance in lockstep: one batched detection
     step over the S frames and one tracker step over the S states (offline
@@ -96,7 +100,17 @@ def make_batched_joint_step(cfg: Config, model: PointRCNN,
     `states` with `init_batched_state(S, max_tracks, feat_dim)`; packed
     rows are [tid, x, y, z, h, w, l, ry, score, emit] per stream.
     `tracker_kw` goes to `make_batched_tracker_step`.
+
+    `devices` (the counterpart of the JAX package's `mesh`): the S streams
+    split contiguously over them, S / len(devices) a part, and each part
+    runs the step on its device with its own copy of the model and heads,
+    with no communication; a device may be named twice.  `states` is then
+    the tuple of the parts' states (`init_batched_state(..., devices=)`),
+    and packed comes back on the first device in stream order.
     """
+    if devices is not None:
+        return _split_joint_step(cfg, model, link_head, track_k,
+                                 det_score_thresh, devices, tracker_kw)
     dev = resolve_device(device)
     det_step = make_detection_step(cfg, model, device=dev)
     trk_step = make_batched_tracker_step(link_head, device=dev, **tracker_kw)
@@ -107,6 +121,38 @@ def make_batched_joint_step(cfg: Config, model: PointRCNN,
         states, out = trk_step(states, frame_ids,
                                *_top_k(det, track_k, det_score_thresh))
         return states, _pack(out)
+
+    return joint
+
+
+def _split_joint_step(cfg, model, link_head, track_k, det_score_thresh,
+                      devices, tracker_kw):
+    """`make_batched_joint_step` with its streams split over `devices`."""
+    devs = [resolve_device(d) for d in devices]
+    parts = []
+    for dev in devs:
+        kw = {k: copy.deepcopy(v) if isinstance(v, nn.Module) else v
+              for k, v in tracker_kw.items()}
+        parts.append(make_batched_joint_step(
+            cfg, copy.deepcopy(model), copy.deepcopy(link_head), track_k,
+            det_score_thresh, device=dev, **kw))
+
+    @torch.no_grad()
+    def joint(states, frame_ids, pts, imgs, xys):
+        s = len(frame_ids)
+        if s % len(parts) or len(states) != len(parts):
+            raise ValueError(f'{s} streams and {len(states)} states do not '
+                             f'split over {len(parts)} devices')
+        k = s // len(parts)
+        new, packs = [], []
+        for i, (step, state) in enumerate(zip(parts, states)):
+            rows = slice(i * k, (i + 1) * k)
+            state, packed = step(state, frame_ids[rows], pts[rows],
+                                 None if imgs is None else imgs[rows],
+                                 xys[rows])
+            new.append(state)
+            packs.append(packed.to(devs[0]))
+        return tuple(new), torch.cat(packs)
 
     return joint
 

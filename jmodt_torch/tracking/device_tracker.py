@@ -326,10 +326,18 @@ def _scatter_drop(dest: torch.Tensor, dst: torch.Tensor,
 
 
 def init_batched_state(n_seqs: int, max_tracks: int, feat_dim: int,
-                       device=None) -> TrackerState:
+                       device=None, devices=None):
     """`n_seqs` empty stores with a leading stream axis on every field but
     the Kalman matrices, which the streams share, on `device` (default:
-    the CUDA card; raises without one)."""
+    the CUDA card; raises without one).  With `devices`, the streams split
+    contiguously over them as `make_batched_joint_step(devices=)` splits
+    them: a tuple of each part's `n_seqs / len(devices)` stores."""
+    if devices is not None:
+        if n_seqs % len(devices):
+            raise ValueError(f'{n_seqs} streams do not split over '
+                             f'{len(devices)} devices')
+        return tuple(init_batched_state(n_seqs // len(devices), max_tracks,
+                                        feat_dim, d) for d in devices)
     state = init_state(max_tracks, feat_dim, device)
     return state._replace(**{
         k: v.expand(n_seqs, *v.shape).clone()

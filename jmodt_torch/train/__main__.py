@@ -3,21 +3,34 @@
     python -m jmodt_torch.train [--data_root <KITTI root>] [--small]
         [--finetune] [--batch_size 4] [--epochs N] [--workers 4]
         [--train_with_eval] [--ckpt FILE] [--async_ckpt]
+        [--data_parallel] [--multihost]
         [--output_dir output] [--device cpu] [--set KEY VALUE ...]
+    torchrun --nproc_per_node N -m jmodt_torch.train --data_parallel ...
+    torchrun --nnodes H ... -m jmodt_torch.train --multihost ...
 
-The counterpart of `tools/train.py`, with its flags but its parallel ones
-(one card, no mesh).  With `--data_root` it trains on a KITTI root's
-`tracking_object/` tree (`python -m jmodt_torch.data.converter`), the pairs
-of `cfg.TRAIN.SPLIT`, loaded by `--workers` processes (0: in this
-process); `--train_with_eval` adds a val epoch over `cfg.TRAIN.VAL_SPLIT`.
+The counterpart of `tools/train.py`, with its flags.  With `--data_root`
+it trains on a KITTI root's `tracking_object/` tree (`python -m
+jmodt_torch.data.converter`), the pairs of `cfg.TRAIN.SPLIT`, loaded by
+`--workers` processes (0: in this process); `--train_with_eval` adds a
+val epoch over `cfg.TRAIN.VAL_SPLIT`.
 Without it, it trains on synthetic pairs (`--synthetic_pairs` an epoch).
 Finetune (the link / se heads only, the RPN frozen) is the default and
 passing `--finetune` turns it off (full losses, as `tools/train.py`
 does).  `--batch_size` counts frame pairs a step.  `--set` overrides
 config keys (`config.config_from_overrides`) and takes the rest of the
 line.  Runs on the CUDA card unless given `--device cpu`.  Writes
-`train.log` and checkpoints under `<output_dir>/ckpt`, with `--async_ckpt`
-on a background thread.
+`train.log`, checkpoints under `<output_dir>/ckpt` (with `--async_ckpt` on a
+background thread) and, where tensorboardX imports, tensorboard scalars
+under `<output_dir>/tensorboard`.
+
+`--data_parallel` splits each batch of `--batch_size` pairs over ranks that
+together take the one-process step on the whole batch
+(`parallel.mesh`): under torchrun its processes, otherwise one process per
+visible card, started here; with one card it takes the one-process step.
+`--multihost` joins the process group that torchrun describes across
+hosts.  `--batch_size` must be a multiple of the number of ranks.  Rank 0
+writes the log, the checkpoints and the scalars.  `--points_parallel` (the
+JAX package's (data, points) mesh) is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,12 +39,19 @@ import argparse
 import dataclasses
 import logging
 import os
+import sys
+from typing import Tuple
+
+import torch
 
 from jmodt_torch.config import Config, config_from_overrides, small_config
 from jmodt_torch.data.synthetic import make_pair_batch
 from jmodt_torch.device import resolve_device
 from jmodt_torch.models.point_rcnn import build_detector
+from jmodt_torch.ops import kernels
+from jmodt_torch.parallel import mesh
 from jmodt_torch.train.checkpoint import AsyncCheckpointWriter, load_checkpoint
+from jmodt_torch.train.data_parallel import cli_rank
 from jmodt_torch.train.train_step import make_optimizer
 from jmodt_torch.train.trainer import Trainer, make_loader
 
@@ -70,14 +90,19 @@ def kitti_set(args, cfg, split, img_hw, logger):
 
 
 def synthetic_loader_fn(cfg, pairs_per_epoch, batch_pairs, img_hw, seed0):
+    """Epochs of synthetic batches of `batch_pairs` pairs (this rank's
+    rows of each when the batch is split over ranks)."""
     def gen():
         for i in range(pairs_per_epoch // batch_pairs):
-            yield make_pair_batch(seed=seed0 + i, cfg=cfg,
-                                  num_pairs=batch_pairs, img_hw=img_hw)
+            yield mesh.shard_batch(make_pair_batch(
+                seed=seed0 + i, cfg=cfg, num_pairs=batch_pairs,
+                img_hw=img_hw))
     return gen
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> Tuple[argparse.Namespace, int]:
+    """The command line and the number of ranks it asks for; stops with a
+    message on flags that cannot run."""
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--data_root', type=str, default=None,
                         help='KITTI root holding tracking_object/ (default: '
@@ -106,15 +131,66 @@ def main(argv=None) -> None:
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--device', type=str, default=None,
                         help='default: the CUDA card')
+    parser.add_argument('--data_parallel', action='store_true',
+                        help='split each batch over torchrun\'s processes, '
+                             'or over one process per visible card')
+    parser.add_argument('--points_parallel', type=int, default=1,
+                        help='the (data, points) mesh: not ported yet')
+    parser.add_argument('--multihost', action='store_true',
+                        help='join the process group torchrun describes '
+                             'across hosts')
     parser.add_argument('--set', dest='set_cfgs', default=None,
                         nargs=argparse.REMAINDER,
                         help='config overrides KEY VALUE ... (the rest of '
                              'the line)')
     args = parser.parse_args(argv)
 
-    device = resolve_device(args.device)
+    if args.points_parallel > 1:
+        parser.error('--points_parallel (the (data, points) mesh) is not '
+                     'ported yet: it is the next slice of the port; '
+                     '--data_parallel splits the batch alone')
+    torchrun = 'WORLD_SIZE' in os.environ
+    if args.multihost and not torchrun:
+        parser.error('--multihost joins the process group from torchrun\'s '
+                     'environment (RANK, WORLD_SIZE, MASTER_ADDR, '
+                     'MASTER_PORT): start the ranks with torchrun')
+    world = 1
+    if args.multihost or (args.data_parallel and torchrun):
+        world = int(os.environ['WORLD_SIZE'])
+    elif (args.data_parallel and args.device is None
+          and torch.cuda.device_count() > 1):
+        world = torch.cuda.device_count()
+    try:
+        mesh.pairs_per_rank(args.batch_size, world)
+    except ValueError as e:
+        parser.error(str(e))
+    return args, world
+
+
+def main(argv=None) -> None:
+    args, world = parse_args(argv)
+    if world > 1 and 'WORLD_SIZE' not in os.environ:
+        kernels.build()            # once, before the ranks load it
+        mesh.spawn(cli_rank, world,
+                   args=(sys.argv[1:] if argv is None else argv,))
+    elif world > 1:
+        device = mesh.init(device=args.device)
+        try:
+            train(args, device)
+        finally:
+            mesh.shutdown()
+    else:
+        train(args, resolve_device(args.device))
+
+
+def train(args, device) -> None:
+    """The run `args` asks for, on `device`, as this process's rank."""
     os.makedirs(args.output_dir, exist_ok=True)
-    logger = create_logger(os.path.join(args.output_dir, 'train.log'))
+    if mesh.rank() == 0:
+        logger = create_logger(os.path.join(args.output_dir, 'train.log'))
+    else:
+        logger = logging.getLogger(f'jmodt_torch.train.rank{mesh.rank()}')
+        logger.setLevel(logging.WARNING)
     cfg = small_config() if args.small else Config()
     if args.set_cfgs:
         cfg = config_from_overrides(cfg, args.set_cfgs)
@@ -124,7 +200,8 @@ def main(argv=None) -> None:
     if args.epochs is not None:
         cfg = dataclasses.replace(
             cfg, TRAIN=dataclasses.replace(cfg.TRAIN, EPOCHS=args.epochs))
-    logger.info('device %s dtype %s', device, cfg.DTYPE)
+    logger.info('device %s dtype %s, %d rank(s)', device, cfg.DTYPE,
+                mesh.world_size())
     # tools/ladder_report.py parses this line
     logger.info('finetune=%s fusion=%s epochs=%d', args.finetune,
                 cfg.LI_FUSION.ENABLED, cfg.TRAIN.EPOCHS)
@@ -167,10 +244,13 @@ def main(argv=None) -> None:
             load_checkpoint(args.ckpt, model, strict=False, log=logger)
 
     ckpt_dir = os.path.join(args.output_dir, 'ckpt')
-    writer = AsyncCheckpointWriter() if args.async_ckpt else None
+    main_rank = mesh.rank() == 0
+    writer = AsyncCheckpointWriter() if args.async_ckpt and main_rank else None
+    tb_log = tensorboard(args.output_dir, logger) if main_rank else None
     trainer = Trainer(cfg, model, optimizer, ckpt_dir, log=logger,
                       log_every=args.log_every, ckpt_every=args.ckpt_every,
-                      seed=args.seed, device=device, ckpt_writer=writer)
+                      seed=args.seed, device=device, ckpt_writer=writer,
+                      tb_log=tb_log)
     logger.info('*************** Start training ***************')
     try:
         trainer.train(it, start_epoch, cfg.TRAIN.EPOCHS, train_loader_fn,
@@ -178,7 +258,20 @@ def main(argv=None) -> None:
     finally:
         if writer is not None:
             writer.close()
+        if tb_log is not None:
+            tb_log.close()
     logger.info('*************** End training ***************')
+
+
+def tensorboard(output_dir: str, logger: logging.Logger):
+    """A tensorboardX writer under `output_dir`/tensorboard, or None where
+    tensorboardX does not import (as tools/train.py skips it)."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        logger.info('tensorboardX unavailable; skipping tb logging')
+        return None
+    return SummaryWriter(log_dir=os.path.join(output_dir, 'tensorboard'))
 
 
 if __name__ == '__main__':

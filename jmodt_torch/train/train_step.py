@@ -17,21 +17,29 @@ Randomness: step `s` draws its RoI sampling from a CPU generator and its
 dropout masks from one on the device, both seeded by (seed, s), so a
 resumed run draws what an unbroken one would, and the card and the CPU
 sample the same RoIs.
+
+Data parallel (`parallel.mesh`): each rank holds a contiguous slice of the
+batch's pairs.  Every batch reduction of the losses is summed over the
+ranks (`losses.batch_sum`), BatchNorm's statistics too, the draws are made
+for the global batch, and the gradients are summed after the backward:
+N ranks take the step of one process on the whole batch, which is what the
+JAX package's data mesh computes.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
 from jmodt_torch.config import Config
 from jmodt_torch.device import resolve_device
-from jmodt_torch.losses import (get_reg_loss, masked_mean,
+from jmodt_torch.losses import (batch_sum, get_reg_loss, masked_mean,
                                 sigmoid_cross_entropy_with_logits,
                                 sigmoid_focal_loss)
-from jmodt_torch.models.proposal import sample_roi_draws
+from jmodt_torch.models.proposal import RoiDraws, sample_roi_draws
+from jmodt_torch.parallel import mesh
 
 # the keys of a train batch the step reads (make_pair_batch's)
 BATCH_KEYS = ('pts_input', 'img', 'pts_xy', 'gt_boxes3d', 'gt_tids',
@@ -65,8 +73,8 @@ def rpn_loss_fn(cfg: Config, rpn_cls, rpn_reg, rpn_cls_label, rpn_reg_label
     pos = ((label_flat > 0) & cls_finite).float()
     neg = ((label_flat == 0) & cls_finite).float()
     if cfg.RPN.LOSS_CLS == 'SigmoidFocalLoss':
-        cls_weights = (pos + neg) / torch.clamp(torch.sum(pos), min=1.0)
-        loss_cls = torch.sum(sigmoid_focal_loss(
+        cls_weights = (pos + neg) / torch.clamp(batch_sum(pos), min=1.0)
+        loss_cls = batch_sum(sigmoid_focal_loss(
             cls_flat, pos, cls_weights, alpha=cfg.RPN.FOCAL_ALPHA[0],
             gamma=cfg.RPN.FOCAL_GAMMA))
     elif cfg.RPN.LOSS_CLS == 'BinaryCrossEntropy':
@@ -84,14 +92,15 @@ def rpn_loss_fn(cfg: Config, rpn_cls, rpn_reg, rpn_cls_label, rpn_reg_label
         num_head_bin=cfg.RPN.NUM_HEAD_BIN, anchor_size=cfg.mean_size,
         get_xz_fine=cfg.RPN.LOC_XZ_FINE, use_cls_score=True,
         iou_loss_type=cfg.TRAIN.IOU_LOSS_TYPE)
-    has_fg = (torch.sum(fg_mask) > 0).float()
+    fg_sum = batch_sum(fg_mask)
+    has_fg = (fg_sum > 0).float()
     # size x3 and IoU x CE_WEIGHT, as the reference weighs them
     loss_reg = (reg.loc_loss + reg.angle_loss + 3.0 * reg.size_loss
                 + cfg.TRAIN.CE_WEIGHT * reg.iou_loss) * has_fg
     loss = (loss_cls * cfg.RPN.LOSS_WEIGHT[0]
             + loss_reg * cfg.RPN.LOSS_WEIGHT[1])
     return loss, {'rpn_loss': loss, 'rpn_loss_cls': loss_cls,
-                  'rpn_loss_reg': loss_reg, 'rpn_fg_sum': torch.sum(fg_mask)}
+                  'rpn_loss_reg': loss_reg, 'rpn_fg_sum': fg_sum}
 
 
 def rcnn_loss_fn(cfg: Config, output: Mapping[str, Any]
@@ -112,8 +121,8 @@ def rcnn_loss_fn(cfg: Config, output: Mapping[str, Any]
         elif cfg.RCNN.LOSS_CLS == 'SigmoidFocalLoss':
             pos = ((cls_label > 0) & cls_finite).float()
             neg = ((cls_label == 0) & cls_finite).float()
-            w = (pos + neg) / torch.clamp(torch.sum(pos), min=1.0)
-            loss_cls = torch.sum(sigmoid_focal_loss(
+            w = (pos + neg) / torch.clamp(batch_sum(pos), min=1.0)
+            loss_cls = batch_sum(sigmoid_focal_loss(
                 cls_flat, pos, w, alpha=cfg.RCNN.FOCAL_ALPHA[0],
                 gamma=cfg.RCNN.FOCAL_GAMMA))
         else:
@@ -132,13 +141,14 @@ def rcnn_loss_fn(cfg: Config, output: Mapping[str, Any]
             loc_y_scope=cfg.RCNN.LOC_Y_SCOPE,
             loc_y_bin_size=cfg.RCNN.LOC_Y_BIN_SIZE, get_ry_fine=True,
             use_cls_score=True, iou_loss_type=cfg.TRAIN.IOU_LOSS_TYPE)
-        has_fg = (torch.sum(fg_mask) > 0).float()
+        fg_sum = batch_sum(fg_mask)
+        has_fg = (fg_sum > 0).float()
         loss_reg = (reg_out.loc_loss + reg_out.angle_loss
                     + 3.0 * reg_out.size_loss
                     + cfg.TRAIN.CE_WEIGHT * reg_out.iou_loss) * has_fg
         loss = loss_cls + loss_reg
         tb.update(rcnn_loss_cls=loss_cls, rcnn_loss_reg=loss_reg,
-                  rcnn_reg_fg=torch.sum(fg_mask))
+                  rcnn_reg_fg=fg_sum)
 
     if cfg.REID.ENABLED and 'reid_link' in output:
         # L1 on the bidirectional-softmaxed link scores and on the sigmoid
@@ -155,8 +165,8 @@ def rcnn_loss_fn(cfg: Config, output: Mapping[str, Any]
                        + (loss_start + loss_end) * cfg.TRAIN.SE_TRAIN_WEIGHT)
         tb.update(rcnn_loss_link=loss_link, rcnn_loss_start=loss_start,
                   rcnn_loss_end=loss_end,
-                  rcnn_link_pos=torch.sum(output['reid_gt_link'] > 0),
-                  rcnn_link_neg=torch.sum((output['reid_gt_link'] == 0)
+                  rcnn_link_pos=batch_sum(output['reid_gt_link'] > 0),
+                  rcnn_link_neg=batch_sum((output['reid_gt_link'] == 0)
                                           & output['reid_link_mask']))
     tb['rcnn_loss'] = loss
     return loss, tb
@@ -180,7 +190,7 @@ def compute_losses(cfg: Config, output: Mapping[str, Any],
         loss = loss + rcnn_loss * cfg.TRAIN.RCNN_TRAIN_WEIGHT
         tb.update(rcnn_tb)
         if 'targets' in output:
-            tb['max_iou'] = output['targets'].max_iou
+            tb['max_iou'] = mesh.batch_max(output['targets'].max_iou)
     tb['loss'] = loss
     return loss, tb
 
@@ -315,11 +325,16 @@ def to_device(batch: Mapping[str, Any], device, non_blocking: bool = False
     return out
 
 
-def _forward(cfg, model, batch, seed, dev):
-    """The TRAIN forward of `batch` with the draws of `seed`."""
-    b = batch['pts_input'].shape[0]
-    draws = sample_roi_draws(cfg, b, cfg.TRAIN.RPN_POST_NMS_TOP_N,
-                             torch.Generator().manual_seed(seed), dev)
+def _forward(cfg, model, batch, seed, dev, roi_draws=None):
+    """The TRAIN forward of `batch` with the draws of `seed`.  The RoI
+    draws and the dropout masks are made for the global batch and cut to
+    this rank's rows when the batch is split over ranks, so N ranks draw
+    what one process draws."""
+    b = mesh.global_rows(batch['pts_input'].shape[0])
+    draws = (roi_draws or sample_roi_draws)(
+        cfg, b, cfg.TRAIN.RPN_POST_NMS_TOP_N,
+        torch.Generator().manual_seed(seed), dev)
+    draws = RoiDraws(*(mesh.local_rows(t) for t in draws))
     dropout = torch.Generator(device=dev).manual_seed(seed)
     return model(batch['pts_input'], batch.get('img'), batch.get('pts_xy'),
                  gt_boxes3d=batch['gt_boxes3d'], gt_tids=batch.get('gt_tids'),
@@ -328,12 +343,20 @@ def _forward(cfg, model, batch, seed, dev):
 
 def make_train_step(cfg: Config, model: torch.nn.Module,
                     optimizer: Optimizer, seed: int = 0,
-                    device=None) -> Callable:
+                    device=None, roi_draws: Optional[Callable] = None
+                    ) -> Callable:
     """step(batch) -> {loss term: scalar tensor}: one optimizer step of
     the PointRCNN(mode='TRAIN') `model` over a batch of frame pairs (numpy
     or tensors), on `device` (default: the CUDA card; raises without
     one).  Adds 'grad_norm', the global norm of every parameter's
-    gradient."""
+    gradient.  `roi_draws(cfg, b, m, generator, device)` gives the RoI
+    sampling's draws for the global batch's b frames (default
+    `sample_roi_draws`).
+
+    When the batch is split over ranks (`parallel.mesh`), `batch` is this
+    rank's rows; the losses are the global batch's and, after the
+    backward, the gradients are summed over the ranks, so every rank takes
+    the step one process takes on the whole batch."""
     dev = resolve_device(device)
 
     def train_step(batch):
@@ -342,9 +365,11 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
         model.zero_grad(set_to_none=True)
         with torch.enable_grad():
             output = _forward(cfg, model, batch,
-                              step_seed(seed, optimizer.count), dev)
+                              step_seed(seed, optimizer.count), dev,
+                              roi_draws)
             loss, tb = compute_losses(cfg, output, batch)
             loss.backward()
+        mesh.sum_grads(model.parameters())
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         tb['grad_norm'] = (global_norm(grads) if grads
                            else torch.zeros((), device=dev))
@@ -357,7 +382,8 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
 def make_val_step(cfg: Config, model: torch.nn.Module, seed: int = 0,
                   device=None) -> Callable:
     """step(batch) -> (loss, {loss term: scalar tensor}): the losses of
-    the TRAIN forward with the model in eval mode, without gradients."""
+    the TRAIN forward with the model in eval mode, without gradients (the
+    global batch's when it is split over ranks)."""
     dev = resolve_device(device)
 
     @torch.no_grad()

@@ -7,15 +7,22 @@ epochs (the last epoch always; written in the background with an
 early stop when the train loss falls while the val loss rises for more
 than `stop_thres` epochs in a row.  The loss is read to the host only every
 `log_every` steps.  The next batch is copied to the device from pinned
-memory without blocking while the current step runs.  One device; no
-mesh.
+memory without blocking while the current step runs.  With a tensorboardX
+writer it writes the JAX trainer's scalars at its steps.
+
+Data parallel (`parallel.mesh`): every rank runs a Trainer on its rows of
+each batch.  The model and optimizer state start from rank 0's; the steps
+keep them equal on every rank, and every loss the trainer logs is the
+global batch's.  Rank 0 alone writes checkpoints (then all ranks meet at a
+barrier) and tensorboard scalars.
 
 `make_loader` batches a `KittiDataset`: in this process with the JAX
 package's `RandomState` epoch order (each batch bit-equal to its
 `make_loader`'s), or in worker processes through
 `torch.utils.data.DataLoader`.  As in the JAX package, every worker starts
 from a copy of the dataset's random state, so workers repeat each other's
-augmentation draws.
+augmentation draws.  When the batch is split over ranks it yields this
+rank's rows.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 
 from jmodt_torch.config import Config
 from jmodt_torch.device import resolve_device
+from jmodt_torch.parallel import mesh
 from jmodt_torch.train.checkpoint import checkpoint_state, save_checkpoint
 from jmodt_torch.train.train_step import (Optimizer, make_train_step,
                                           make_val_step, scalars, to_device)
@@ -45,15 +53,17 @@ class Trainer:
     :param device: default the CUDA card (raises without one)
     :param ckpt_writer: an `AsyncCheckpointWriter`, or None to write
         checkpoints in the loop
+    :param tb_log: a tensorboardX `SummaryWriter`, or None
     """
 
     def __init__(self, cfg: Config, model: torch.nn.Module,
                  optimizer: Optimizer, ckpt_dir: str,
                  log: Optional[logging.Logger] = None, log_every: int = 1,
                  ckpt_every: int = 1, seed: int = 0, device=None,
-                 ckpt_writer: Any = None):
+                 ckpt_writer: Any = None, tb_log: Any = None):
         self.cfg = cfg
         self.ckpt_writer = ckpt_writer
+        self.tb_log = tb_log
         self.model = model
         self.optimizer = optimizer
         self.device = resolve_device(device)
@@ -61,6 +71,9 @@ class Trainer:
         self.log = log or logger
         self.log_every = max(int(log_every), 1)
         self.ckpt_every = max(int(ckpt_every), 1)
+        mesh.put_replicated([*model.state_dict().values(), *optimizer.mu,
+                             *optimizer.nu])
+        optimizer.count = mesh.broadcast_int(optimizer.count, self.device)
         self._train_step = make_train_step(cfg, model, optimizer, seed,
                                            self.device)
         self._val_step = make_val_step(cfg, model, seed, self.device)
@@ -98,9 +111,16 @@ class Trainer:
         return (sum(total) / len(total) if total else 0.0), means
 
     def _save(self, name: str, with_optimizer: bool, epoch=None, it=None):
-        save_checkpoint(checkpoint_state(
-            self.model, self.optimizer if with_optimizer else None, epoch,
-            it), os.path.join(self.ckpt_dir, name), writer=self.ckpt_writer)
+        if mesh.rank() == 0:
+            save_checkpoint(checkpoint_state(
+                self.model, self.optimizer if with_optimizer else None,
+                epoch, it), os.path.join(self.ckpt_dir, name),
+                writer=self.ckpt_writer)
+        mesh.barrier()
+
+    def _scalar(self, name: str, value: float, step: int) -> None:
+        if self.tb_log is not None:
+            self.tb_log.add_scalar(name, value, step)
 
     def train(self, start_it: int, start_epoch: int, n_epochs: int,
               train_loader_fn: Callable[[], Iterable],
@@ -124,6 +144,9 @@ class Trainer:
                 vals = scalars(tb)
                 if vals['loss'] > 0:
                     train_losses.append(vals['loss'])
+                    self._scalar('train_loss', vals['loss'], it)
+                    for k, v in vals.items():
+                        self._scalar('train_' + k, v, it)
             trained_epoch = epoch + 1
             train_loss_epoch = (sum(train_losses) / len(train_losses)
                                 if train_losses else last_logged)
@@ -131,6 +154,7 @@ class Trainer:
             self.log.info('epoch %d: train_loss=%.4f (%.1fs, %d its)',
                           trained_epoch, train_loss_epoch, time.time() - t0,
                           it - start_it)
+            self._scalar('train_loss_epoch', train_loss_epoch, trained_epoch)
             if (trained_epoch % self.ckpt_every == 0
                     or trained_epoch == n_epochs):
                 self._save('checkpoint_epoch_%d' % trained_epoch, True,
@@ -142,6 +166,9 @@ class Trainer:
                               val_loss_epoch, ' '.join(
                                   f'{k}={v:.4f}' for k, v in
                                   sorted(val_terms.items())))
+                self._scalar('val_loss_epoch', val_loss_epoch, trained_epoch)
+                for k, v in val_terms.items():
+                    self._scalar('val_' + k, v, trained_epoch)
 
             # early stop: train loss down while val loss up, stop_thres
             # epochs running
@@ -168,8 +195,9 @@ class Trainer:
 
 
 def make_loader(dataset, batch_size: int, shuffle: bool = True,
-                num_workers: int = 0, seed: int = 0,
-                drop_last: bool = True) -> Callable[[], Iterable]:
+                num_workers: int = 0, seed: int = 0, drop_last: bool = True,
+                part: Optional[int] = None, parts: Optional[int] = None
+                ) -> Callable[[], Iterable]:
     """A factory of epochs of collated numpy batches over a
     `KittiDataset`-style object (`__len__`, `__getitem__`,
     `collate_batch`).
@@ -179,13 +207,26 @@ def make_loader(dataset, batch_size: int, shuffle: bool = True,
     `make_loader` draws it.  Otherwise `torch.utils.data.DataLoader`
     prefetches in `num_workers` processes started fresh each epoch
     (spawned: the trainer's process holds the card and a checkpoint
-    thread), shuffling with a `torch.Generator` seeded `seed`."""
+    thread), shuffling with a `torch.Generator` seeded `seed`.
+
+    Each batch is rank `part`'s pairs of the one-process batch when it is
+    split over `parts` ranks (default: this process's rank and world
+    size, `parallel.mesh`): every rank draws the same order.  At
+    `num_workers` 0 the rank loads the whole batch, so that the dataset's
+    random draws are the one process's, and keeps its rows; its worker
+    processes load its pairs alone."""
+    part = mesh.rank() if part is None else part
+    parts = mesh.world_size() if parts is None else parts
     if num_workers > 0:
         gen = torch.Generator().manual_seed(seed) if shuffle else None
+        order = (torch.utils.data.RandomSampler(dataset, generator=gen)
+                 if shuffle else torch.utils.data.SequentialSampler(dataset))
         loader = torch.utils.data.DataLoader(
-            dataset, batch_size=batch_size, shuffle=shuffle,
+            dataset, batch_sampler=_RankBatches(
+                torch.utils.data.BatchSampler(order, batch_size, drop_last),
+                part, parts),
             num_workers=num_workers, collate_fn=dataset.collate_batch,
-            drop_last=drop_last, generator=gen,
+            generator=gen,
             multiprocessing_context=multiprocessing.get_context('spawn'))
         return lambda: iter(loader)
 
@@ -197,7 +238,23 @@ def make_loader(dataset, batch_size: int, shuffle: bool = True,
             rng.shuffle(order)
         for i in range(0, len(order) - (batch_size - 1 if drop_last else 0),
                        batch_size):
-            yield dataset.collate_batch([dataset[j] for j in
-                                         order[i:i + batch_size]])
+            batch = dataset.collate_batch([dataset[j] for j in
+                                           order[i:i + batch_size]])
+            yield mesh.shard_batch(batch, part, parts)
 
     return epoch
+
+
+class _RankBatches:
+    """Rank `part`'s share of each batch of indices of `batches`."""
+
+    def __init__(self, batches, part: int, parts: int):
+        self.batches, self.part, self.parts = batches, part, parts
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+    def __iter__(self):
+        for idx in self.batches:
+            n = mesh.pairs_per_rank(len(idx), self.parts)
+            yield idx[self.part * n:(self.part + 1) * n]

@@ -98,6 +98,26 @@ def test_kitti_train_slice_imports_with_jax_blocked():
     _imports_with_jax_blocked(KITTI_TRAIN_SLICE_MODULES)
 
 
+PARALLEL_SLICE_MODULES = (
+    'jmodt_torch.parallel', 'jmodt_torch.parallel.mesh',
+    'jmodt_torch.train.data_parallel', 'jmodt_torch.pipeline')
+
+
+def test_parallel_slice_imports_with_jax_blocked():
+    """So do data-parallel training and the split lockstep step."""
+    _imports_with_jax_blocked(PARALLEL_SLICE_MODULES)
+
+
+def test_data_parallel_needs_a_card_unless_asked(monkeypatch):
+    """A rank joins on a card unless it is given the CPU; without a card
+    it raises before it joins a group."""
+    from jmodt_torch.parallel import mesh
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        mesh.init(0, 1, 'tcp://localhost:1')
+    assert not torch.distributed.is_initialized()
+
+
 def test_eval_needs_a_card_unless_asked(monkeypatch, tmp_path):
     from jmodt_torch.eval import __main__ as eval_main
     from jmodt_torch.eval import detection_ap

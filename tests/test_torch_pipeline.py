@@ -12,7 +12,11 @@ the same JAX output.
 
 The lockstep step runs two streams (frames 0-2 and 1-3) at S = 2 against
 the JAX package's batched step and against the port's own step on each
-stream alone; the scan pipeline runs the four frames in a chunk of 3 and a
+stream alone.  Split over devices (`devices=['cpu', 'cpu']`) at S = 4 for 3
+frames, it must equal the unsplit step (tid, emit and the states' integer
+fields exact, floats within 1e-4 of scale) and the JAX package's step on a
+2-device mesh (within rtol and atol 1e-4, tests/test_pipeline.py's
+tolerances for its sharded step).  The scan pipeline runs the four frames in a chunk of 3 and a
 ragged tail of 1 against the JAX package's scan pipeline and the port's
 `JointPipeline`.
 
@@ -31,6 +35,7 @@ import torch
 import __graft_entry__
 import jmodt_tpu.models.pointnet2 as jax_pointnet2
 from jmodt_tpu.data import synthetic as jax_synthetic
+from jmodt_tpu.parallel import make_mesh
 from jmodt_tpu.models.point_rcnn import PointRCNN as JaxPointRCNN
 from jmodt_tpu.models.rcnn import CorrelationHead as JaxCorrelationHead
 from jmodt_tpu.pipeline import ScanPipeline as JaxScanPipeline
@@ -228,3 +233,74 @@ def test_scan_pipeline_matches_jax_and_joint_pipeline(joint_setup):
                 assert _rel_err(box, obox) < TOL
                 assert abs(score - oscore) < TOL
     assert sum(len(rows) for _, rows in got) > 0
+
+
+SPLIT_STREAMS = 4
+
+
+def _stream_inputs(frames, i):
+    """Lockstep frame i of SPLIT_STREAMS streams: stream s at frame
+    (i + s) mod 4."""
+    pick = [frames[(i + s) % len(frames)] for s in range(SPLIT_STREAMS)]
+    return (np.full(SPLIT_STREAMS, i + 1, np.int32),
+            *(np.concatenate([f[k] for f in pick])
+              for k in ('pts_input', 'img', 'pts_xy')))
+
+
+def _concat_states(parts):
+    """The per-device states of a split step as one state of all streams."""
+    return parts[0]._replace(**{
+        k: torch.cat([getattr(p, k) for p in parts])
+        for k in parts[0]._fields if k != 'mats'})
+
+
+def test_split_lockstep_matches_unsplit_and_jax_mesh(joint_setup):
+    frames, variables, link_p, feat_dim = joint_setup[:4]
+    jcfg = _jax_cfg()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_pointnet2, 'three_nn', _three_nn_kernel_semantics)
+        jmodel = JaxPointRCNN(jcfg, mode='EVAL')
+        head = JaxCorrelationHead(jcfg.REID.LINK_FC)
+        sharded = jax_batched_step(jcfg, jmodel, head.apply,
+                                   mesh=make_mesh(jax.devices()[:2]), **KW)
+        jstates = jax_init_batched_state(SPLIT_STREAMS, MAX_TRACKS, feat_dim)
+        jpacked = []
+        for i in range(3):
+            jstates, p = sharded(variables, link_p, jstates,
+                                 *_stream_inputs(frames, i))
+            jpacked.append(np.asarray(p))
+        jstates = jax.device_get(jstates)
+    cfg, model, head = _port_parts(joint_setup, True)
+    devices = ['cpu', 'cpu']
+    whole = make_batched_joint_step(cfg, model, head, device='cpu', **KW)
+    split = make_batched_joint_step(cfg, model, head, devices=devices, **KW)
+    states = init_batched_state(SPLIT_STREAMS, MAX_TRACKS, feat_dim,
+                                device='cpu')
+    parts = init_batched_state(SPLIT_STREAMS, MAX_TRACKS, feat_dim,
+                               devices=devices)
+    assert len(parts) == 2 and parts[0].tid.shape == (2, MAX_TRACKS)
+    for i in range(3):
+        args = _stream_inputs(frames, i)
+        states, want = whole(states, *args)
+        parts, got = split(parts, *args)
+        assert got.shape == (SPLIT_STREAMS, MAX_TRACKS, 10)
+        for s in range(SPLIT_STREAMS):
+            _check_rows(got[s].numpy(), want[s].numpy())
+        np.testing.assert_allclose(got.numpy(), jpacked[i], rtol=1e-4,
+                                   atol=1e-4)
+    assert sum(int(p[..., 9].sum()) for p in jpacked) > 0
+    joined = _concat_states(parts)
+    for k in joined._fields:
+        if k == 'mats':
+            continue
+        got, want = getattr(joined, k).numpy(), getattr(states, k).numpy()
+        if got.dtype.kind == 'f':
+            assert _rel_err(got, want) < TOL, k
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=k)
+        jax_v = np.asarray(getattr(jstates, k))
+        if k in ('mean', 'cov'):          # JAX pads the 10-dim state to 16
+            jax_v = (jax_v[..., :10] if k == 'mean'
+                     else jax_v[..., :10, :10])
+        np.testing.assert_allclose(got, jax_v, rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
