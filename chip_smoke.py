@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (jmodt_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --data-parallel    # phases 1 and 15 alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -2227,7 +2228,57 @@ def split_lockstep(frames):
 
 
 
-def main() -> int:
+def data_parallel_phase(frames) -> dict:
+    """Phase 15, printed; returns its data-parallel results."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dp = data_parallel_steps(tmp)
+    (one_ms, _, _), *rank_t = dp['timing']
+    print(f'[15 data parallel] {DP_RANKS} ranks on cuda:0 over gloo vs one '
+          f'process, Config() finetune with REID.FG_THRESH 0 (bfloat16), '
+          f'{TRAIN_PAIRS} pairs a step ({TRAIN_PAIRS // DP_RANKS} a rank), '
+          f'{DP_TIMING_STEPS} steps: ms a step (steps 2-{DP_TIMING_STEPS}, '
+          f'synchronized wall) one process {one_ms:.2f}, ranks '
+          + ', '.join(f'{m:.2f}' for m, _, _ in rank_t)
+          + '; collectives a rank-step '
+          + ', '.join(f'{c} ({cm:.2f} ms in them)' for _, c, cm in rank_t)
+          + '; peak memory GiB one process '
+          f'{dp["peak_gib"][0]:.2f}, ranks '
+          + ', '.join(f'{g:.2f}' for g in dp['peak_gib'][1:])
+          + f'; launches a rank-step {dp["launches"]}, each step equal to '
+          f'the one process\'s; loss step {DP_TIMING_STEPS} one process '
+          f'{dp["loss"][0]:.6g}, rank 0 {dp["loss"][1]:.6g}', flush=True)
+    for what, backend, pairs, (gaps, ulp), launches, coll in dp['compare']:
+        rpn = ('' if what == 'finetune' else
+               'the RPN\'s loss terms within 1e-5 (gated); all ')
+        print(f'[15 data parallel] float32 (TF32 off) {what}, {pairs} pairs,'
+              f' {DP_RANKS} ranks over {backend} vs one process (in '
+              'brackets: one process vs itself on the points moved by one '
+              f'ulp): {rpn}loss terms err {gaps["terms"]:.3g} '
+              f'({ulp["terms"]:.3g}), parameters {gaps["params"]:.3g} '
+              f'({ulp["params"]:.3g}; {gaps["skipped"]} and {ulp["skipped"]}'
+              ' elements of noise or flipped-sign gradients aside), '
+              f'BatchNorm statistics {gaps["stats"]:.3g} ({ulp["stats"]:.3g}'
+              f'), gradients {gaps["grads"]:.3g} ({ulp["grads"]:.3g}) of '
+              f'their scale; ranks bit-equal; launches a rank {launches} '
+              f'equal to one process\'s; {coll} collectives a rank',
+              flush=True)
+    sp = split_lockstep(frames)
+    print(f'[15 split] make_batched_joint_step, S={STREAMS}, RPN.MEGA_SA, '
+          f'{SPLIT_FRAMES} frames split over '
+          + ', '.join(n for n in sp['errs'])
+          + ' vs unsplit: float32 tid, emit and state integers equal, '
+          'rows and state floats err '
+          + ', '.join(f'{e:.3g}' for e in sp['errs'].values())
+          + f' ({sp["emitted"]} rows emitted); K5 3 launches a part a frame; '
+          'ms a lockstep frame (bfloat16, synchronized wall) '
+          + ', '.join(f'{n} {m:.2f}' for (n, d), m in sp['ms'].items()
+                      if d == 'bfloat16')
+          + f' ({time.perf_counter() - t0:.1f} s)', flush=True)
+    return dp
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
@@ -2246,6 +2297,13 @@ def main() -> int:
 
     cfg = dataclasses.replace(Config(), DTYPE='bfloat16')
     frames = [make_eval_frame(seed, cfg, raw_u8=True) for seed in range(4)]
+    if argv == ['--data-parallel']:     # phase 15 alone: a multi-card call
+        data_parallel_phase(frames)
+        print_device()
+        return 0
+    if argv:
+        print(f'chip_smoke: unknown arguments {argv}', file=sys.stderr)
+        return 2
     model = build_detector(cfg, seed=0)
     step = make_detection_step(cfg, model)
     print('[2 kernels] inputs recorded from one detection step; kernel vs '
@@ -2427,51 +2485,7 @@ def main() -> int:
           f'({kt["sweep_s"]:.2f} s; phase {time.perf_counter() - t0:.1f} s)',
           flush=True)
 
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        dp = data_parallel_steps(tmp)
-    (one_ms, _, _), *rank_t = dp['timing']
-    print(f'[15 data parallel] {DP_RANKS} ranks on cuda:0 over gloo vs one '
-          f'process, Config() finetune with REID.FG_THRESH 0 (bfloat16), '
-          f'{TRAIN_PAIRS} pairs a step ({TRAIN_PAIRS // DP_RANKS} a rank), '
-          f'{DP_TIMING_STEPS} steps: ms a step (steps 2-{DP_TIMING_STEPS}, '
-          f'synchronized wall) one process {one_ms:.2f}, ranks '
-          + ', '.join(f'{m:.2f}' for m, _, _ in rank_t)
-          + '; collectives a rank-step '
-          + ', '.join(f'{c} ({cm:.2f} ms in them)' for _, c, cm in rank_t)
-          + '; peak memory GiB one process '
-          f'{dp["peak_gib"][0]:.2f}, ranks '
-          + ', '.join(f'{g:.2f}' for g in dp['peak_gib'][1:])
-          + f'; launches a rank-step {dp["launches"]}, each step equal to '
-          f'the one process\'s; loss step {DP_TIMING_STEPS} one process '
-          f'{dp["loss"][0]:.6g}, rank 0 {dp["loss"][1]:.6g}', flush=True)
-    for what, backend, pairs, (gaps, ulp), launches, coll in dp['compare']:
-        rpn = ('' if what == 'finetune' else
-               'the RPN\'s loss terms within 1e-5 (gated); all ')
-        print(f'[15 data parallel] float32 (TF32 off) {what}, {pairs} pairs,'
-              f' {DP_RANKS} ranks over {backend} vs one process (in '
-              'brackets: one process vs itself on the points moved by one '
-              f'ulp): {rpn}loss terms err {gaps["terms"]:.3g} '
-              f'({ulp["terms"]:.3g}), parameters {gaps["params"]:.3g} '
-              f'({ulp["params"]:.3g}; {gaps["skipped"]} and {ulp["skipped"]}'
-              ' elements of noise or flipped-sign gradients aside), '
-              f'BatchNorm statistics {gaps["stats"]:.3g} ({ulp["stats"]:.3g}'
-              f'), gradients {gaps["grads"]:.3g} ({ulp["grads"]:.3g}) of '
-              f'their scale; ranks bit-equal; launches a rank {launches} '
-              f'equal to one process\'s; {coll} collectives a rank',
-              flush=True)
-    sp = split_lockstep(frames)
-    print(f'[15 split] make_batched_joint_step, S={STREAMS}, RPN.MEGA_SA, '
-          f'{SPLIT_FRAMES} frames split over '
-          + ', '.join(n for n in sp['errs'])
-          + ' vs unsplit: float32 tid, emit and state integers equal, '
-          'rows and state floats err '
-          + ', '.join(f'{e:.3g}' for e in sp['errs'].values())
-          + f' ({sp["emitted"]} rows emitted); K5 3 launches a part a frame; '
-          'ms a lockstep frame (bfloat16, synchronized wall) '
-          + ', '.join(f'{n} {m:.2f}' for (n, d), m in sp['ms'].items()
-                      if d == 'bfloat16')
-          + f' ({time.perf_counter() - t0:.1f} s)', flush=True)
+    dp = data_parallel_phase(frames)
 
     rows = []
     for k in KERNELS:
@@ -2525,6 +2539,12 @@ def main() -> int:
             row['deconv_ms'] = a['deconv_ms']
             row['deconv_library_ms'] = a['deconv_library_ms']
     print(json.dumps({'kernels': rows}))
+    print_device()
+    return 0
+
+
+def print_device() -> None:
+    """The card's name and power limit, then the contract's last line."""
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -2532,13 +2552,12 @@ def main() -> int:
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == '__main__':
     try:
         with torch.no_grad():
-            code = main()
+            code = main(sys.argv[1:])
         sys.exit(code)
     except SmokeFailure as e:
         print(f'chip_smoke FAILED: {e}', file=sys.stderr)
