@@ -185,16 +185,24 @@ Phases, in order; any failure exits non-zero:
             every rank's launches equal to the one process's, ms a step,
             collectives and ms in them, peak memory a rank; then in
             float32 with TF32 off one finetune step of 4 pairs and one
-            full-losses step of 2 pairs: loss terms, parameters (but
-            elements whose gradient is float32 noise, at most 1e-6 of the
-            largest) and BatchNorm statistics within 1e-5 of scale, the
-            ranks bit-equal (also over NCCL, a rank a card, when there are
-            several cards).  Then the lockstep step (S = 4, RPN.MEGA_SA)
-            split over [cuda:0, cuda:0] (and two cards when there are):
-            float32 rows and states equal to the unsplit step's (tid, emit
-            and integers exact, floats within 1e-4), K5 3 launches a part
-            a frame, and ms a lockstep frame split and unsplit
-            (bfloat16).
+            full-losses step of 2 pairs, each also run by one process on
+            its points moved by one ulp (the control): the ranks
+            bit-equal, BatchNorm statistics within 1e-5 of scale,
+            gradients within the control's gap, flipped-sign gradient
+            elements at most 1e-3 of a leaf (full losses: or the
+            control's count there); the finetune's loss terms and
+            parameters (but elements whose gradient is float32 noise, at
+            most 1e-6 of the largest, or flips sign) within 1e-5; the
+            full losses' RPN terms within 1e-5, every term within the
+            control's gap and parameters within twice it (also over NCCL,
+            a rank a card, when there are several cards; the whole smoke
+            needs only one, so `--data-parallel` runs phases 1 and 15
+            alone for a call on several).  Then the lockstep step (S = 4,
+            RPN.MEGA_SA) split over [cuda:0, cuda:0] (and two cards when
+            there are): float32 rows and states equal to the unsplit
+            step's (tid, emit and integers exact, floats within 1e-4), K5
+            3 launches a part a frame, and ms a lockstep frame split and
+            unsplit (bfloat16).
 
 Prints a {"kernels": [...]} line (launches from phase 6; per path from
 phases 3, 6, 8, 13 and per training step from 11, 12, 14 and 15; per-call
@@ -212,6 +220,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -1973,6 +1982,11 @@ DP_NOISE = 1e-6
 # tests/test_torch_train_step.py floors it: a float32 backward resolves a
 # gradient only to about float32's epsilon of the largest
 DP_GRAD_FLOOR = 1e-2
+# flipped-sign gradient elements a leaf may hold, as a share of its size
+DP_FLIP_SHARE = 1e-3
+# full losses: the ranks' parameters within this many times the one-ulp
+# run's gap
+DP_ULP_PARAMS = 2.0
 DP_TIMING_STEPS = 3
 DP_FULL_PAIRS = 2
 SPLIT_TOL = 1e-4
@@ -1990,14 +2004,15 @@ def dp_gaps(ref, got):
     """How far run `got` lies from run `ref` after one step: the largest
     loss-term error, parameter error and BatchNorm-statistic error of
     scale (max(1, |ref|)), the gradient error of its own scale (floored at
-    DP_GRAD_FLOOR of the largest), and how many parameter elements were
-    skipped: those whose gradient is float32 noise (DP_NOISE of the
-    largest) or has opposite signs in the two runs.  Adam's first step
-    moves an element by about one learning rate along its gradient's sign
-    whatever its size, so a sign that rounding decides is no function of
-    the step."""
+    DP_GRAD_FLOOR of the largest), and the parameter elements left out of
+    the parameter error: those whose gradient is float32 noise (DP_NOISE of
+    the largest; counted in 'noise') or has opposite signs in the two runs
+    (counted by leaf in 'flips').  Adam's first step moves an element by
+    about one learning rate along its gradient's sign whatever its size,
+    so a sign that rounding decides is no function of the step."""
     gaps = {'terms': 0.0, 'grads': 0.0, 'params': 0.0, 'stats': 0.0,
-            'skipped': 0, 'worst_params': None, 'worst_stats': None}
+            'noise': 0, 'flips': {}, 'sizes': {}, 'worst_params': None,
+            'worst_stats': None, 'worst_grads': None}
     for k, v in ref['steps'][-1]['tb'].items():
         gaps['terms'] = max(gaps['terms'], abs(got['steps'][-1]['tb'][k] - v)
                             / max(1.0, abs(v)))
@@ -2008,11 +2023,15 @@ def dp_gaps(ref, got):
         g = got['grads'][k]
         check(g is not None, f'{k} has a gradient in one run only')
         scale = max(float(want.abs().max()), DP_GRAD_FLOOR * top)
-        gaps['grads'] = max(gaps['grads'],
-                            float((g - want).abs().max()) / scale)
-        skip[k] = ((want.abs() <= DP_NOISE * top)
-                   | (torch.sign(g) != torch.sign(want)))
-        gaps['skipped'] += int(skip[k].sum())
+        e = float((g - want).abs().max()) / scale
+        if e > gaps['grads']:
+            gaps['grads'], gaps['worst_grads'] = e, k
+        noise = want.abs() <= DP_NOISE * top
+        flips = (torch.sign(g) != torch.sign(want)) & ~noise
+        skip[k] = noise | flips
+        gaps['noise'] += int(noise.sum())
+        gaps['flips'][k] = int(flips.sum())
+        gaps['sizes'][k] = want.numel()
     for k, want in ref['state'].items():
         diff = (got['state'][k].double() - want.double()).abs()
         if k in skip:
@@ -2024,40 +2043,96 @@ def dp_gaps(ref, got):
     return gaps
 
 
-def dp_compare(one, ulp, ranks, finetune, what):
+def flip_cap(gaps, ulp, finetune):
+    """{leaf: the most flipped-sign elements allowed}: DP_FLIP_SHARE of the
+    leaf (at least 1); under full losses, or as many as the one-ulp run
+    flips there when that is more."""
+    return {k: max(1, math.ceil(DP_FLIP_SHARE * n),
+                   0 if finetune else ulp['flips'][k])
+            for k, n in gaps['sizes'].items()}
+
+
+def print_compare(what, backend, pairs, gaps, ulp, launches, coll):
+    """One phase 15 comparison's line, printed before its gates."""
+    bound = ('within 1e-5' if what == 'finetune' else
+             'the RPN\'s within 1e-5, all within the one-ulp gap')
+    pbound = ('1e-5' if what == 'finetune' else
+              f'{DP_ULP_PARAMS:g}x the one-ulp gap')
+    flips = sorted(((n, k) for k, n in gaps['flips'].items() if n),
+                   reverse=True)
+    print(f'[15 data parallel] float32 (TF32 off) {what}, {pairs} pairs,'
+          f' {DP_RANKS} ranks over {backend} vs one process (in '
+          'brackets: one process vs itself on the points moved by one '
+          f'ulp): loss terms ({bound}) err {gaps["terms"]:.3g} '
+          f'({ulp["terms"]:.3g}), parameters (within {pbound}) '
+          f'{gaps["params"]:.3g} ({ulp["params"]:.3g}; {gaps["noise"]} '
+          f'and {ulp["noise"]} elements of noise aside, and '
+          f'{sum(gaps["flips"].values())} and '
+          f'{sum(ulp["flips"].values())} of flipped-sign gradients, '
+          f'capped by leaf; most flipped: '
+          + ', '.join(f'{k} {n} of {gaps["sizes"][k]}'
+                      for n, k in flips[:3])
+          + f'), BatchNorm statistics (within 1e-5) {gaps["stats"]:.3g} '
+          f'({ulp["stats"]:.3g}), gradients (within the one-ulp gap) '
+          f'{gaps["grads"]:.3g} ({ulp["grads"]:.3g}; worst '
+          f'{gaps["worst_grads"]}) of their scale; ranks bit-equal; '
+          f'launches a rank {launches} equal to one process\'s; {coll} '
+          'collectives a rank', flush=True)
+
+
+def dp_compare(one, ulp, ranks, finetune, what, backend, pairs):
     """Phase 15's gates for the ranks against the one-process run `one`:
     the kernels not rebuilt, every step's launches equal, the ranks'
-    states bit-equal, BatchNorm statistics within DP_TOL of scale; for the
-    finetune every loss term and parameter within DP_TOL of scale, for
-    full losses the RPN's terms.  With random weights the full-losses step
-    is discontinuous at float32's resolution (its proposals tie within
+    states bit-equal, BatchNorm statistics within DP_TOL of scale, the
+    gradients no further from one process's than the one process's own on
+    the batch's points moved by one float32 ulp (`ulp`), and no leaf with
+    more flipped-sign gradient elements than `flip_cap`.  For the finetune
+    every loss term and parameter within DP_TOL of scale.  Under full
+    losses the RPN's terms within DP_TOL; with random weights the step is
+    discontinuous at float32's resolution there (its proposals tie within
     rounding, so the RoIs sampled from them and the RCNN after them move
-    with any rounding), and cuBLAS's per-row results depend on the batch's
-    size, so there the RCNN's terms, the parameters and the gradients are
-    measured beside the gap of `ulp`, the one-process step on the batch's
-    points moved by one float32 ulp, and not gated.  Returns (the ranks'
+    with any rounding), so every loss term is held to the one-ulp run's
+    gap and the parameters to DP_ULP_PARAMS times it.  Returns (the ranks'
     gaps, the one-ulp gaps)."""
+    tag = f'{what} over {backend}'
     for r in ranks:
-        check(r['build_s'] == 0.0, f'{what}: rank {r["rank"]} built the '
+        check(r['build_s'] == 0.0, f'{tag}: rank {r["rank"]} built the '
               f'kernels ({r["build_s"]:.1f} s)')
         for i, (a, b) in enumerate(zip(one['steps'], r['steps'])):
-            check(a['launches'] == b['launches'], f'{what}: rank '
+            check(a['launches'] == b['launches'], f'{tag}: rank '
                   f'{r["rank"]} step {i + 1} launched {b["launches"]}, one '
                   f'process {a["launches"]}')
         for k, v in ranks[0]['state'].items():
-            check(torch.equal(v, r['state'][k]), f'{what}: {k} differs '
+            check(torch.equal(v, r['state'][k]), f'{tag}: {k} differs '
                   f'between ranks 0 and {r["rank"]}')
     gaps, self_gaps = dp_gaps(one, ranks[0]), dp_gaps(one, ulp)
-    check(gaps['stats'] <= DP_TOL, f'{what}: BatchNorm statistics err '
+    print_compare(what, backend, pairs, gaps, self_gaps,
+                  one['steps'][0]['launches'],
+                  ranks[0]['steps'][0]['collectives'])
+    check(gaps['stats'] <= DP_TOL, f'{tag}: BatchNorm statistics err '
           f'{gaps["stats"]} ({gaps["worst_stats"]})')
+    check(gaps['grads'] <= self_gaps['grads'], f'{tag}: gradients err '
+          f'{gaps["grads"]} ({gaps["worst_grads"]}), one ulp '
+          f'{self_gaps["grads"]}')
+    cap = flip_cap(gaps, self_gaps, finetune)
+    over = {k: (n, cap[k]) for k, n in gaps['flips'].items() if n > cap[k]}
+    check(not over, f'{tag}: flipped-sign gradient elements over their cap '
+          f'(flipped, cap) {over}')
     want, got = one['steps'][-1]['tb'], ranks[0]['steps'][-1]['tb']
     for k, v in want.items():
         if finetune or k.startswith('rpn_'):
             e = abs(got[k] - v) / max(1.0, abs(v))
-            check(e <= DP_TOL, f'{what}: {k} {got[k]}, one process {v}')
+            check(e <= DP_TOL, f'{tag}: {k} {got[k]}, one process {v}')
     if finetune:
-        check(gaps['params'] <= DP_TOL, f'{what}: parameters err '
+        check(gaps['params'] <= DP_TOL, f'{tag}: parameters err '
               f'{gaps["params"]} ({gaps["worst_params"]})')
+    else:
+        check(gaps['terms'] <= max(DP_TOL, self_gaps['terms']),
+              f'{tag}: loss terms err {gaps["terms"]}, one ulp '
+              f'{self_gaps["terms"]}')
+        check(gaps['params'] <= DP_ULP_PARAMS * self_gaps['params'],
+              f'{tag}: parameters err {gaps["params"]} '
+              f'({gaps["worst_params"]}), one ulp {self_gaps["params"]}')
     return gaps, self_gaps
 
 
@@ -2078,7 +2153,7 @@ def data_parallel_steps(tmp):
     card over NCCL when there are several) against one process."""
     import os
     from jmodt_torch.train import data_parallel
-    res = {'compare': []}
+    res = {}
     tf32 = os.environ.get('NVIDIA_TF32_OVERRIDE')
     # the ranks compute float32 as this process does since phase 4: no TF32
     os.environ['NVIDIA_TF32_OVERRIDE'] = '0'
@@ -2131,11 +2206,7 @@ def data_parallel_steps(tmp):
                 ranks = data_parallel.on_ranks(
                     DP_RANKS, cfg32, state, batch,
                     f'{tmp}/{backend}_{finetune}', device=device)
-                gaps = dp_compare(one, ulp, ranks, finetune,
-                                  f'{what} over {backend}')
-                res['compare'].append((what, backend, pairs, gaps,
-                                       one['steps'][0]['launches'],
-                                       ranks[0]['steps'][0]['collectives']))
+                dp_compare(one, ulp, ranks, finetune, what, backend, pairs)
     finally:
         if tf32 is None:
             os.environ.pop('NVIDIA_TF32_OVERRIDE')
@@ -2248,21 +2319,6 @@ def data_parallel_phase(frames) -> dict:
           + f'; launches a rank-step {dp["launches"]}, each step equal to '
           f'the one process\'s; loss step {DP_TIMING_STEPS} one process '
           f'{dp["loss"][0]:.6g}, rank 0 {dp["loss"][1]:.6g}', flush=True)
-    for what, backend, pairs, (gaps, ulp), launches, coll in dp['compare']:
-        rpn = ('' if what == 'finetune' else
-               'the RPN\'s loss terms within 1e-5 (gated); all ')
-        print(f'[15 data parallel] float32 (TF32 off) {what}, {pairs} pairs,'
-              f' {DP_RANKS} ranks over {backend} vs one process (in '
-              'brackets: one process vs itself on the points moved by one '
-              f'ulp): {rpn}loss terms err {gaps["terms"]:.3g} '
-              f'({ulp["terms"]:.3g}), parameters {gaps["params"]:.3g} '
-              f'({ulp["params"]:.3g}; {gaps["skipped"]} and {ulp["skipped"]}'
-              ' elements of noise or flipped-sign gradients aside), '
-              f'BatchNorm statistics {gaps["stats"]:.3g} ({ulp["stats"]:.3g}'
-              f'), gradients {gaps["grads"]:.3g} ({ulp["grads"]:.3g}) of '
-              f'their scale; ranks bit-equal; launches a rank {launches} '
-              f'equal to one process\'s; {coll} collectives a rank',
-              flush=True)
     sp = split_lockstep(frames)
     print(f'[15 split] make_batched_joint_step, S={STREAMS}, RPN.MEGA_SA, '
           f'{SPLIT_FRAMES} frames split over '

@@ -51,13 +51,12 @@ class BatchNorm(nn.Module):
     leading axis and the biased variance E[x^2] - E[x]^2 clipped at 0; the
     normalization in float32, cast back to x's dtype; and the running
     statistics become 0.9 old + 0.1 batch.  (`F.batch_norm` would update
-    the running variance with the unbiased variance.)  The sums of x and
-    x^2 accumulate in float64 before the statistics round to float32, so
-    the order of the sum does not move them: when the batch is split over
-    ranks (`parallel.mesh`), the sums and the row count are summed over
-    them, gradients flowing through the sum, and the statistics, the
-    running averages and the backward are the global batch's, as flax
-    computes them under GSPMD, up to float32 rounding."""
+    the running variance with the unbiased variance.)  When the batch is
+    split over ranks (`parallel.mesh`), the float32 sums of x and x^2 and
+    the row count are summed over them, gradients flowing through the sum,
+    and the statistics, the running averages and the backward are the
+    global batch's, as flax computes them under GSPMD, up to float32
+    summation order."""
 
     def __init__(self, channels: int, device=None):
         super().__init__()
@@ -78,16 +77,18 @@ class BatchNorm(nn.Module):
     def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         axes = tuple(range(x.dim() - 1))
-        c = x.shape[-1]
-        sums = mesh.stat_sum(torch.cat([
-            torch.sum(xf, axes, dtype=torch.float64),
-            torch.sum(xf * xf, axes, dtype=torch.float64),
-            torch.full((1,), xf.numel() // c, dtype=torch.float64,
-                       device=x.device)]))
-        mean64 = sums[:c] / sums[-1]
-        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean64 * mean64,
-                          min=0.0).to(xf.dtype)
-        mean = mean64.to(xf.dtype)
+        if mesh.split() is None:
+            mean = xf.mean(axes)
+            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        else:
+            c = x.shape[-1]
+            sums = mesh.stat_sum(torch.cat([
+                torch.sum(xf, axes), torch.sum(xf * xf, axes),
+                torch.full((1,), xf.numel() // c, dtype=xf.dtype,
+                           device=x.device)]))
+            mean = sums[:c] / sums[-1]
+            var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean,
+                              min=0.0)
         self.updates += 1
         with torch.no_grad():
             self.running_mean.copy_(BN_MOMENTUM * self.running_mean

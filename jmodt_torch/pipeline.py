@@ -127,7 +127,13 @@ def make_batched_joint_step(cfg: Config, model: PointRCNN,
 
 def _split_joint_step(cfg, model, link_head, track_k, det_score_thresh,
                       devices, tracker_kw):
-    """`make_batched_joint_step` with its streams split over `devices`."""
+    """`make_batched_joint_step` with its streams split over `devices`.
+
+    The parts run one after another from the calling thread, so the split
+    spreads the streams' memory and weights over the devices but not their
+    time: each part's step is host-bound and reads back to the host at
+    every NMS round.  A host thread a part was slower still, on one card
+    and on two: running the parts at once needs a process a device."""
     devs = [resolve_device(d) for d in devices]
     parts = []
     for dev in devs:

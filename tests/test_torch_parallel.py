@@ -68,6 +68,7 @@ from jmodt_tpu.data.synthetic import make_pair_batch
 from jmodt_tpu.models.point_rcnn import PointRCNN as JaxPointRCNN
 from jmodt_tpu.train import train_step as jax_train_step
 from jmodt_torch.config import small_config
+from jmodt_torch.models import layers
 from jmodt_torch.models.point_rcnn import PointRCNN, build_detector
 from jmodt_torch.parallel import mesh
 from jmodt_torch.train import __main__ as train_main
@@ -209,14 +210,54 @@ def test_two_ranks_take_the_one_process_step(runs):
         assert g is None or torch.equal(g, ranks[1]['grads'][k]), k
 
 
-def test_dropout_and_batchnorm_in_every_head(tmp_path):
+def _batch_norm_float64(self, x):
+    """`BatchNorm._batch_norm` with the sums of x and x^2 in float64: the
+    one-process step's statistics rounded otherwise."""
+    xf = x.float()
+    axes = tuple(range(x.dim() - 1))
+    mean = xf.double().mean(axes)
+    var = torch.clamp((xf.double() ** 2).mean(axes) - mean * mean,
+                      min=0.0).float()
+    mean = mean.float()
+    self.updates += 1
+    with torch.no_grad():
+        self.running_mean.mul_(layers.BN_MOMENTUM).add_(
+            (1 - layers.BN_MOMENTUM) * mean)
+        self.running_var.mul_(layers.BN_MOMENTUM).add_(
+            (1 - layers.BN_MOMENTUM) * var)
+    mul = torch.rsqrt(var + layers.BN_EPS) * self.weight
+    return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+def _state_errs(got_state, want_state, noise):
+    """{name: the largest error of scale of each parameter and buffer},
+    the noise elements of `noise` aside."""
+    errs = {}
+    for name, want in want_state.items():
+        diff = (got_state[name].double() - want.double()).abs()
+        if name in noise:
+            diff = torch.where(noise[name], torch.zeros_like(diff), diff)
+        errs[name] = float(diff.max()) / max(float(want.abs().max()), 1.0)
+    return errs
+
+
+def test_dropout_and_batchnorm_in_every_head(tmp_path, monkeypatch):
     """Full losses with dropout 0.5 in the RPN and RCNN heads (the ReID
     heads take RCNN.DP_RATIO) and BatchNorm in the RCNN and the ReID
     heads: the ranks draw the one process's masks (rank 1's ReID heads
     after moving past rank 0's pair), sum the RCNN's statistics over the
     batch and keep each pair's ReID statistics its own, so the loss
-    terms, BatchNorm statistics and parameters (noise elements aside)
-    stay within 1e-5 of scale of the one process's."""
+    terms, grad_norm, BatchNorm statistics and parameters (noise elements
+    aside) stay within 1e-5 of scale of the one process's, or within
+    twice the gap that the one process's own float32 statistics make.
+
+    That control is the one-process step with its BatchNorm sums in
+    float64.  BatchNorm on the heads' few rows has channels whose variance
+    is near eps, which amplify the statistics' rounding: on this batch the
+    control moves grad_norm by 3.1e-5 of scale and the se head's second
+    running variance by 2.1e-5, and the ranks' float32 sums, taken in
+    another order, by 4.0e-5 and 3.1e-5; all else of either stays within
+    1e-5."""
     _, tcfg = _cfgs(False)
     tcfg = R(tcfg, RPN=R(tcfg.RPN, DP_RATIO=0.5),
              RCNN=R(tcfg.RCNN, DP_RATIO=0.5, USE_BN=True),
@@ -231,12 +272,19 @@ def test_dropout_and_batchnorm_in_every_head(tmp_path):
     ranks = data_parallel.on_ranks(RANKS, tcfg, state, [batch],
                                    str(tmp_path / 'ranks'), device='cpu',
                                    threads=1)
+    with monkeypatch.context() as m:
+        m.setattr(layers.BatchNorm, '_batch_norm', _batch_norm_float64)
+        one64 = _one_process(tcfg, state, [batch], str(tmp_path / 'one64'))
     want = one['steps'][0]['tb']
     assert want['rcnn_loss_link'] > 0 and want['rpn_loss_reg'] > 0
     for k, v in want.items():
-        assert _err(ranks[1]['steps'][0]['tb'][k], v) <= DP_TOL, k
-    _check_params(ranks[1]['state'], one['state'], _noise(one['grads']),
-                  DP_TOL)
+        rounding = _err(one64['steps'][0]['tb'][k], v)
+        assert _err(ranks[1]['steps'][0]['tb'][k], v) <= max(
+            DP_TOL, 2 * rounding), (k, rounding)
+    noise = _noise(one['grads'])
+    rounding = _state_errs(one64['state'], one['state'], noise)
+    for k, e in _state_errs(ranks[1]['state'], one['state'], noise).items():
+        assert e <= max(DP_TOL, 2 * rounding[k]), (k, e, rounding[k])
     for k, v in ranks[0]['state'].items():
         assert torch.equal(v, ranks[1]['state'][k]), k
 
