@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --data-parallel    # phases 1 and 15 alone
+    python3 chip_smoke.py --remainder        # phases 1 and 16 alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -203,10 +204,32 @@ Phases, in order; any failure exits non-zero:
             step's (tid, emit and integers exact, floats within 1e-4), K5
             3 launches a part a frame, and ms a lockstep frame split and
             unsplit (bfloat16).
+16. remainder (a) the detection step at Config() and the joint step
+            with RPN.MEGA_SA, each with LI_FUSION.FUSED_PYRAMID (the image
+            pyramid sampled at the points, never made whole), bfloat16, 3
+            frames with the launch counts set to 0 just before: phase 3's
+            and 6's launches a frame and one fused pyramid forward a frame;
+            then float32 with TF32 off, fused against materialized on the
+            card with the same weights (backbone_features, rois, boxes,
+            scores and the joint rows within 1e-3 of their scale; roi_mask,
+            keep, tid and emit equal), and ms a frame both ways in turns
+            (median, min and max of 6, wall clock and CUDA events) with the
+            peak memory.  (b) the native point-cloud loader
+            (jmodt_torch/native, g++) on phase 14's tree: built, one native
+            load a frame read, pts_input and pts_xy within rtol 2e-4 / atol
+            1e-3 of the numpy loader, and the loader's host ms a batch both
+            ways.  (c) a Config() checkpoint through `python -m
+            jmodt_torch.tools.export_torch_weights`, read back by
+            `load_checkpoint`: every tensor and one detection frame
+            bit-equal.  (d) `oracle_ap` and `recall_diagnosis` on phase 13's
+            tree, its stage-1 detections and the oracle's jittered ones: the
+            card's JSON equal to `--device cpu`'s (IoU floats within 1e-6).
+            (e) `synthetic_ladder` at its smallest (3 frames, 2 sequences,
+            an epoch a stage) prints its JSON line; its seconds printed.
 
 Prints a {"kernels": [...]} line (launches from phase 6; per path from
-phases 3, 6, 8, 13 and per training step from 11, 12, 14 and 15; per-call
-times and bounds; K1's largest placeable cluster, its cluster size at
+phases 3, 6, 8, 13, 16 and per training step from 11, 12, 14 and 15;
+per-call times and bounds; K1's largest placeable cluster, its cluster size at
 each N and us a step at level 0; K2's plan, us a step and warp sweep per
 call at S = 1 and 4; K3's plan and library
 time per FP level; K5's FPS floor per level; K4's and K5's
@@ -663,26 +686,30 @@ def run_step(step, frames):
     return ms, counts, outs
 
 
-def parity(cfg32, frame):
+def detection_outputs(cfg32, frame, dev):
+    """One float32 frame of the detection step on `dev` (weights from seed
+    0), with the model forward's rpn_cls, rpn_reg and backbone_features."""
     from jmodt_torch.models.inference import make_detection_step
     from jmodt_torch.models.point_rcnn import build_detector
+    model = build_detector(cfg32, device=dev, seed=0)
+    step = make_detection_step(cfg32, model, device=dev)
+    out = dict(step(frame['pts_input'], frame['img'], frame['pts_xy']))
+    img = torch.as_tensor(frame['img'], device=dev).float() / 255.0
+    img = (img - torch.tensor([0.485, 0.456, 0.406], device=dev)) \
+        / torch.tensor([0.229, 0.224, 0.225], device=dev)
+    fwd = model(torch.as_tensor(frame['pts_input'], device=dev), img,
+                torch.as_tensor(frame['pts_xy'], device=dev))
+    for key in ('rpn_cls', 'rpn_reg', 'backbone_features'):
+        out[key] = fwd[key]
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def parity(cfg32, frame):
     # fp32 on the card means fp32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    results = {}
-    for dev in ('cuda', 'cpu'):
-        model = build_detector(cfg32, device=dev, seed=0)
-        step = make_detection_step(cfg32, model, device=dev)
-        out = dict(step(frame['pts_input'], frame['img'], frame['pts_xy']))
-        img = torch.as_tensor(frame['img'], device=dev).float() / 255.0
-        img = (img - torch.tensor([0.485, 0.456, 0.406], device=dev)) \
-            / torch.tensor([0.229, 0.224, 0.225], device=dev)
-        fwd = model(torch.as_tensor(frame['pts_input'], device=dev), img,
-                    torch.as_tensor(frame['pts_xy'], device=dev))
-        for key in ('rpn_cls', 'rpn_reg', 'backbone_features'):
-            out[key] = fwd[key]
-        results[dev] = {k: v.cpu() for k, v in out.items()}
-    gpu, cpu = results['cuda'], results['cpu']
+    gpu, cpu = (detection_outputs(cfg32, frame, dev)
+                for dev in ('cuda', 'cpu'))
     errs = {}
     for key in ('roi_mask', 'keep'):
         check(torch.equal(gpu[key], cpu[key]), f'parity: {key} differs')
@@ -2334,6 +2361,439 @@ def data_parallel_phase(frames) -> dict:
     return dp
 
 
+# ----------------------------------------------------------------- phase 16
+
+PYRAMID_FRAMES = 3      # frames a path with LI_FUSION.FUSED_PYRAMID
+PYRAMID_ROUNDS = 2      # timed rounds, the routes' order flipped each
+LOADER_TOL = dict(rtol=2e-4, atol=1e-3)     # tests/test_native_loader.py
+LADDER_ARGS = ['--frames', '3', '--seqs', '2', '--epochs1', '1', '--epochs2',
+               '1', '--epochs3', '1', '--batch', '2']
+
+
+def pyramid_cfg(cfg, fused: bool):
+    return dataclasses.replace(cfg, LI_FUSION=dataclasses.replace(
+        cfg.LI_FUSION, FUSED_PYRAMID=fused))
+
+
+def routes_since(before: dict) -> dict:
+    """ImagePyramidFusion's forwards by route since `before`."""
+    from jmodt_torch.models import image_backbone
+    now = image_backbone.pyramid_routes
+    return {k: now[k] - before.get(k, 0) for k in ('fused', 'materialized')}
+
+
+def fused_paths(frames):
+    """Phase 16 (a), bfloat16: the detection step at Config() and the
+    joint step with RPN.MEGA_SA, each with FUSED_PYRAMID, phases 3's and
+    6's launch checks a frame and one fused forward a frame."""
+    from jmodt_torch.config import Config
+    from jmodt_torch.models import image_backbone
+    from jmodt_torch.models.inference import make_detection_step
+    from jmodt_torch.models.point_rcnn import build_detector
+    n = PYRAMID_FRAMES
+    cfg = pyramid_cfg(dataclasses.replace(Config(), DTYPE='bfloat16'), True)
+    step = make_detection_step(cfg, build_detector(cfg, seed=0))
+    before = dict(image_backbone.pyramid_routes)
+    _, det_counts, _ = run_step(step, frames[:n])
+    routes = routes_since(before)
+    check(routes == {'fused': n, 'materialized': 0},
+          f'fused pyramid: detection step routes {routes} in {n} frames')
+    mcfg = pyramid_cfg(mega_cfg('bfloat16'), True)
+    joint = build_joint(mcfg)
+    before = dict(image_backbone.pyramid_routes)
+    # n frames, then one frame fed three times (run_joint)
+    _, joint_counts, _, _ = run_joint(joint, mcfg, frames[:n])
+    routes = routes_since(before)
+    check(routes == {'fused': n + 3, 'materialized': 0},
+          f'fused pyramid: joint step routes {routes} in {n + 3} frames')
+    return ({k: v // n for k, v in det_counts.items()},
+            {k: v // n for k, v in joint_counts.items()})
+
+
+def fused_parity(frames):
+    """Phase 16 (a), float32 with TF32 off, on the card: the fused route
+    against the materialized one with the same weights."""
+    from jmodt_torch.config import Config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(Config(), DTYPE='float32')
+    mat, fused = (detection_outputs(pyramid_cfg(cfg32, f), frames[0], 'cuda')
+                  for f in (False, True))
+    errs = {}
+    for key in ('roi_mask', 'keep'):
+        check(torch.equal(mat[key], fused[key]),
+              f'fused pyramid parity: {key} differs')
+    for key in ('backbone_features', 'rois', 'boxes', 'scores'):
+        errs[key] = scale_err(fused[key], mat[key])
+        check(errs[key] <= NET_TOL, f'fused pyramid parity: {key} err '
+              f'{errs[key]}')
+    rows = {}
+    for f in (False, True):
+        c = pyramid_cfg(mega_cfg('float32'), f)
+        joint, state = build_joint(c), new_state(c)
+        rows[f] = []
+        for i, fr in enumerate(frames[:PYRAMID_FRAMES]):
+            state, packed = joint(state, i + 1, fr['pts_input'], fr['img'],
+                                  fr['pts_xy'])
+            rows[f].append(packed.cpu())
+    joint_err = 0.0
+    for i, (m, g) in enumerate(zip(rows[False], rows[True])):
+        check(torch.equal(m[:, 0], g[:, 0]) and torch.equal(m[:, 9], g[:, 9]),
+              f'fused pyramid joint parity frame {i}: tid or emit differs')
+        joint_err = max(joint_err, scale_err(g[:, 1:9], m[:, 1:9]))
+    check(joint_err <= NET_TOL, f'fused pyramid joint parity: boxes / '
+          f'scores err {joint_err}')
+    errs['joint_rows'] = joint_err
+    return errs, sum(int(r[:, 9].sum()) for r in rows[True])
+
+
+def frame_times(run, frames):
+    """[(wall ms, CUDA-event ms, peak GiB, GiB over the frame's start)] a
+    frame of `run(frame)`, each frame synchronized."""
+    out = []
+    for f in frames:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        run(f)
+        end.record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out.append(((time.perf_counter() - t0) * 1e3, start.elapsed_time(end),
+                    peak / 2**30, (peak - base) / 2**30))
+    return out
+
+
+def pyramid_timing(frames):
+    """Phase 16 (a): ms a frame and peak memory of the detection step and
+    the joint step (bfloat16), the materialized route against the fused
+    one in turns, PYRAMID_FRAMES frames a turn."""
+    from jmodt_torch.config import Config
+    from jmodt_torch.models.inference import make_detection_step
+    from jmodt_torch.models.point_rcnn import build_detector
+    base = dataclasses.replace(Config(), DTYPE='bfloat16')
+    runs = {}
+    for fused in (False, True):
+        c = pyramid_cfg(base, fused)
+        step = make_detection_step(c, build_detector(c, seed=0))
+        runs[('detection', fused)] = (
+            lambda f, step=step: step(f['pts_input'], f['img'], f['pts_xy']))
+        mc = pyramid_cfg(mega_cfg('bfloat16'), fused)
+        joint, st = build_joint(mc), {'state': new_state(mc), 'id': 0}
+
+        def run_joint_frame(f, joint=joint, st=st):
+            st['id'] += 1
+            st['state'], packed = joint(st['state'], st['id'],
+                                        f['pts_input'], f['img'],
+                                        f['pts_xy'])
+            return packed
+        runs[('joint', fused)] = run_joint_frame
+    for run in runs.values():                 # warm up, kernels built
+        frame_times(run, frames[:1])
+    samples = {k: [] for k in runs}
+    for r in range(PYRAMID_ROUNDS):
+        for path in ('detection', 'joint'):
+            for fused in ((False, True) if r % 2 == 0 else (True, False)):
+                samples[(path, fused)] += frame_times(
+                    runs[(path, fused)], frames[:PYRAMID_FRAMES])
+    return samples
+
+
+def pyramid_layer(frames, reps: int = 20):
+    """Phase 16 (a): the image pyramid alone on one frame's levels
+    (bfloat16, Config()): device ms (cuda_ms) and peak memory over the
+    call's start of the materialized map sampled by feature_gather, and of
+    the fused gather.  Returns {route: ((ms, host_clocked), GiB)}."""
+    from jmodt_torch.config import Config
+    from jmodt_torch.models.image_backbone import feature_gather
+    from jmodt_torch.models.inference import make_detection_step
+    from jmodt_torch.models.point_rcnn import build_detector
+    cfg = dataclasses.replace(Config(), DTYPE='bfloat16')
+    model = build_detector(cfg, seed=0)
+    pyr = model.rpn.backbone.img_pyramid
+    seen = []
+    hook = pyr.register_forward_pre_hook(lambda m, a: seen.append(a))
+    f = frames[0]
+    make_detection_step(cfg, model)(f['pts_input'], f['img'], f['pts_xy'])
+    hook.remove()
+    levels = list(seen[0][0])
+    xy = torch.as_tensor(f['pts_xy'], device=levels[0].device).float()
+    routes = {
+        'materialized': lambda *a: feature_gather(pyr(list(a[:-1])), a[-1]),
+        'fused': lambda *a: pyr(list(a[:-1]), a[-1])}
+    out = {}
+    for name, fn in routes.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn(*levels, xy)
+        torch.cuda.synchronize()
+        grow = (torch.cuda.max_memory_allocated() - base) / 2**30
+        out[name] = (cuda_ms(fn, (*levels, xy), reps), grow)
+    return out
+
+
+def show_frame_times(samples) -> str:
+    def stat(vals):
+        return (f'{np.median(vals):.2f} (min {min(vals):.2f}, max '
+                f'{max(vals):.2f})')
+    parts = []
+    for (path, fused), s in samples.items():
+        wall, ev, peak, grow = zip(*s)
+        parts.append(f'{path} {"fused" if fused else "materialized"}: wall '
+                     f'{stat(wall)} ms, CUDA events {stat(ev)} ms, peak '
+                     f'{max(peak):.3f} GiB ({max(grow):.3f} over the frame\'s '
+                     'start)')
+    return '; '.join(parts)
+
+
+def native_loader(root):
+    """Phase 16 (b): the native loader on phase 14's tree (KITTI's sizes)
+    against the numpy one, and the loader's host ms a batch both ways."""
+    from jmodt_torch import native
+    from jmodt_torch.config import Config
+    from jmodt_torch.data.kitti_dataset import KittiDataset
+    t0 = time.perf_counter()
+    path = native.build()
+    build_s = time.perf_counter() - t0
+    check(native.get_lib() is not None, 'native loader: no library')
+    cfg = Config()
+    kw = dict(npoints=cfg.RPN.NUM_POINTS, split='val', mode='EVAL', cfg=cfg,
+              fixed_img_size=TRAIN_IMG_HW, seed=0)
+    a = KittiDataset(root, **kw)
+    b = KittiDataset(root, use_native=False, **kw)
+    native.loads.clear()
+    err = 0.0
+    for i in range(len(a)):
+        x, y = a[i], b[i]
+        for key in ('pts_input', 'pts_xy'):
+            check(np.allclose(x[key], y[key], **LOADER_TOL),
+                  f'native loader: frame {i} {key} differs from numpy')
+            err = max(err, float(np.abs(x[key] - y[key]).max()))
+    check(native.loads['load_velodyne'] == native.loads['project_and_filter']
+          == len(a) > 0, f'native loader: {dict(native.loads)} loads for '
+          f'{len(a)} frames')
+    # the loader's host cost, native and numpy in turns
+    tcfg = train_cfg(True, cfg.DTYPE, reid_fg_thresh=0.0)
+    per_epoch = 2 * TRAIN_PAIRS * KITTI_TRAIN_STEPS
+    ms = {True: [], False: []}
+    for use in (True, False, False, True):
+        ds = KittiDataset(root, npoints=cfg.RPN.NUM_POINTS, split='train',
+                          mode='TRAIN', cfg=tcfg, fixed_img_size=TRAIN_IMG_HW,
+                          use_native=use)
+        native.loads.clear()
+        first, rest = loader_ms(ds, 0)
+        reads = native.loads['project_and_filter']
+        check(reads == (per_epoch if use else 0), f'native loader: '
+              f'{reads} native loads in an epoch of {per_epoch} frames '
+              f'(use_native={use})')
+        ms[use].append((first, rest))
+    return dict(build_s=build_s, lib=path.name, frames=len(a), err=err,
+                ms=ms, per_epoch=per_epoch)
+
+
+def export_round_trip(tmp, frames):
+    """Phase 16 (c): a saved Config() checkpoint through `python -m
+    jmodt_torch.tools.export_torch_weights`, read back by
+    `load_checkpoint` into a new model: every tensor and one detection
+    frame bit-equal."""
+    import contextlib
+    import io
+    from jmodt_torch.config import Config
+    from jmodt_torch.models.inference import make_detection_step
+    from jmodt_torch.models.point_rcnn import build_detector
+    from jmodt_torch.tools import export_torch_weights
+    from jmodt_torch.train.checkpoint import (checkpoint_state,
+                                              load_checkpoint,
+                                              save_checkpoint)
+    cfg = dataclasses.replace(Config(), DTYPE='bfloat16')
+    model = build_detector(cfg, seed=0)
+    ckpt = save_checkpoint(checkpoint_state(model, epoch=1, it=3),
+                           f'{tmp}/port_model')
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = export_torch_weights.main(['--ckpt', ckpt, '--out',
+                                         f'{tmp}/reference.pth'])
+    saved = torch.load(out, map_location='cpu', weights_only=True)
+    check(all(k.startswith(('rpn.backbone_net.', 'rpn.rpn_', 'rcnn_net.'))
+              for k in saved['model_state']),
+          'export: a key outside the reference\'s names')
+    again = build_detector(cfg, seed=7)
+    it, epoch = load_checkpoint(out, again)
+    check((it, epoch) == (3, 1), f'export: it, epoch {it}, {epoch}')
+    own, back = model.state_dict(), again.state_dict()
+    for k, v in own.items():
+        check(torch.equal(back[k], v), f'export: {k} not bit-equal')
+    f = frames[0]
+    want = make_detection_step(cfg, model)(f['pts_input'], f['img'],
+                                           f['pts_xy'])
+    got = make_detection_step(cfg, again)(f['pts_input'], f['img'],
+                                          f['pts_xy'])
+    for k, v in want.items():
+        check(torch.equal(got[k], v), f'export: detection {k} differs')
+    return len(saved['model_state']), len(own)
+
+
+def same_json(a, b, float_tol: float) -> float:
+    """Raise unless `a` and `b` are the same JSON (floats within
+    `float_tol`); returns the largest float gap."""
+    check(type(a) is type(b), f'json: {a!r} vs {b!r}')
+    if isinstance(a, dict):
+        check(list(a) == list(b), f'json keys {list(a)} vs {list(b)}')
+        return max([same_json(a[k], b[k], float_tol) for k in a] or [0.0])
+    if isinstance(a, list):
+        check(len(a) == len(b), f'json: {a} vs {b}')
+        return max([same_json(x, y, float_tol) for x, y in zip(a, b)]
+                   or [0.0])
+    if isinstance(a, float):
+        check(abs(a - b) <= float_tol, f'json: {a} vs {b}')
+        return abs(a - b)
+    check(a == b, f'json: {a!r} vs {b!r}')
+    return 0.0
+
+
+def oracle_and_recall(tmp):
+    """Phase 16 (d): `oracle_ap` and `recall_diagnosis` on phase 13's tree
+    and its stage-1 detections (and the oracle's jittered ones), on the
+    card and with `--device cpu`."""
+    import contextlib
+    import io
+    import logging
+    from jmodt_torch.config import Config
+    from jmodt_torch.eval import __main__ as ev
+    from jmodt_torch.tools import oracle_ap, recall_diagnosis
+    log = logging.getLogger('chip_smoke.remainder')
+    log.addHandler(logging.NullHandler())
+    log.propagate = False
+    cfg = Config()
+    root = f'{tmp}/KITTI'
+    eval_tree(root, cfg)
+    pth = eval_checkpoint(cfg, f'{tmp}/model')
+    args = ev.build_parser().parse_args(
+        ['--data_root', root, '--det_output', f'{tmp}/eval/det',
+         '--output_dir', f'{tmp}/eval', '--ckpt', pth])
+    with contextlib.redirect_stdout(io.StringIO()):
+        ev.eval_joint_detection(args, cfg, log)
+    res, secs = {}, {}
+    for dev in ('cuda', 'cpu'):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            oracle = oracle_ap.main(['--data_root', root, '--jitter', '0.3',
+                                     '--out', f'{tmp}/oracle_{dev}',
+                                     '--device', dev])
+            recalls = [recall_diagnosis.main(
+                ['--data_root', root, '--det_dir', d, '--device', dev])
+                for d in (f'{tmp}/eval/det/txt',
+                          f'{tmp}/oracle_cuda/txt_jitter')]
+        secs[dev] = time.perf_counter() - t0
+        res[dev] = (oracle, recalls)
+    (o_card, r_card), (o_cpu, r_cpu) = res['cuda'], res['cpu']
+    check(o_card == o_cpu, f'oracle_ap: card {o_card} != CPU {o_cpu}')
+    gap = max(same_json(a, b, IOU_EVAL_TOL) for a, b in zip(r_card, r_cpu))
+    check(o_card['oracle_dets'] > 0 and r_card[1]['n_gt'] > 0,
+          'oracle / recall: nothing scored')
+    return dict(oracle=o_card, recalls=r_card, gap=gap, secs=secs)
+
+
+def ladder_run(tmp):
+    """Phase 16 (e): `python -m jmodt_torch.tools.synthetic_ladder` at its
+    smallest on the card."""
+    import contextlib
+    import io
+    import logging
+    from jmodt_torch.tools import synthetic_ladder
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            res = synthetic_ladder.main(['--out', f'{tmp}/ladder',
+                                         *LADDER_ARGS])
+    except Exception as e:
+        raise SmokeFailure(f'synthetic_ladder: {e!r}; its output ends '
+                           f'{buf.getvalue()[-2000:]}') from e
+    finally:
+        root = logging.getLogger()
+        for h in list(root.handlers):
+            if isinstance(h, logging.FileHandler):
+                root.removeHandler(h)
+                h.close()
+    secs = time.perf_counter() - t0
+    last = buf.getvalue().strip().splitlines()[-1]
+    check(json.loads(last) == res and list(res) == [
+        'ap_3d_moderate', 'ap_bev_moderate', 'mota', 'stages'],
+        f'synthetic_ladder: last line {last}')
+    return res, secs
+
+
+def remainder_phase(frames) -> dict:
+    """Phase 16, printed; returns the fused paths' launches a frame."""
+    t0 = time.perf_counter()
+    det_counts, joint_counts = fused_paths(frames)
+    print(f'[16 remainder] (a) LI_FUSION.FUSED_PYRAMID, bfloat16, '
+          f'{PYRAMID_FRAMES} frames: launches a frame detection step '
+          f'{det_counts}, joint step (RPN.MEGA_SA) {joint_counts}; one fused '
+          'pyramid forward a frame, none materialized', flush=True)
+    errs, emitted = fused_parity(frames)
+    print('[16 remainder] (a) float32, TF32 off, fused vs materialized on '
+          'the card: roi_mask, keep equal; joint tid, emit equal ('
+          f'{emitted} rows emitted); errors '
+          + ', '.join(f'{k} {v:.3g}' for k, v in errs.items()), flush=True)
+    samples = pyramid_timing(frames)
+    print(f'[16 remainder] (a) ms a frame, bfloat16, median of '
+          f'{PYRAMID_ROUNDS * PYRAMID_FRAMES} in turns: '
+          + show_frame_times(samples), flush=True)
+    layer = pyramid_layer(frames)
+    print('[16 remainder] (a) the image pyramid alone, one frame\'s levels '
+          '(bfloat16), device time and peak memory over the call\'s start: '
+          + '; '.join(f'{k} {show(t)}, {g:.4f} GiB'
+                      for k, (t, g) in layer.items()), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        from jmodt_torch.config import Config
+        kitti_train_tree(f'{tmp}/KITTI', Config())
+        nl = native_loader(f'{tmp}/KITTI')
+    print(f'[16 remainder] (b) native loader {nl["lib"]} built in '
+          f'{nl["build_s"]:.2f} s; {nl["frames"]} EVAL frames of '
+          f'{EVAL_SWEEP}-point sweeps, {EVAL_IMG_HW[0]}x{EVAL_IMG_HW[1]} '
+          f'PNGs: pts_input and pts_xy within rtol {LOADER_TOL["rtol"]:g} / '
+          f'atol {LOADER_TOL["atol"]:g} of numpy (largest gap '
+          f'{nl["err"]:.3g}), one native load a frame; loader host ms a batch '
+          f'of {TRAIN_PAIRS} pairs in this process (first batch, then a '
+          'batch): '
+          + '; '.join(f'{"native" if u else "numpy"} '
+                      + ', '.join(f'{a:.1f} / {b:.1f}' for a, b in v)
+                      for u, v in nl['ms'].items())
+          + f'; {nl["per_epoch"]} native loads an epoch '
+          f'({time.perf_counter() - t1:.1f} s)', flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        n_ref, n_own = export_round_trip(tmp, frames)
+    print(f'[16 remainder] (c) export: a Config() checkpoint through python '
+          f'-m jmodt_torch.tools.export_torch_weights ({n_ref} reference '
+          f'tensors), read back by load_checkpoint: {n_own} tensors and one '
+          'detection frame bit-equal', flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        orc = oracle_and_recall(tmp)
+    o, r = orc['oracle'], orc['recalls']
+    print(f'[16 remainder] (d) oracle_ap on phase 13\'s tree: ceiling '
+          f'{json.dumps(o["ceiling"])}, jitter 0.3 '
+          f'{json.dumps(o["jittered"])}, card JSON equal to --device cpu; '
+          f'recall_diagnosis on the stage-1 detections (recall '
+          f'{r[0]["recall"]:.3f} of {r[0]["n_gt"]}) and the jittered oracle '
+          f'(recall {r[1]["recall"]:.3f}): card JSON equal to --device cpu '
+          f'(largest float gap {orc["gap"]:.3g}); seconds card '
+          f'{orc["secs"]["cuda"]:.2f}, CPU {orc["secs"]["cpu"]:.2f}',
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        lad, secs = ladder_run(tmp)
+    print(f'[16 remainder] (e) python -m jmodt_torch.tools.synthetic_ladder '
+          f'{" ".join(LADDER_ARGS)}: {json.dumps(lad)} in {secs:.1f} s '
+          f'(phase {time.perf_counter() - t0:.1f} s)', flush=True)
+    return dict(detection=det_counts, joint=joint_counts)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2355,6 +2815,10 @@ def main(argv) -> int:
     frames = [make_eval_frame(seed, cfg, raw_u8=True) for seed in range(4)]
     if argv == ['--data-parallel']:     # phase 15 alone: a multi-card call
         data_parallel_phase(frames)
+        print_device()
+        return 0
+    if argv == ['--remainder']:         # phase 16 alone
+        remainder_phase(frames)
         print_device()
         return 0
     if argv:
@@ -2542,6 +3006,7 @@ def main(argv) -> int:
           flush=True)
 
     dp = data_parallel_phase(frames)
+    rem = remainder_phase(frames)
 
     rows = []
     for k in KERNELS:
@@ -2560,7 +3025,10 @@ def main(argv) -> int:
                 'train_kitti_full_step': fl['counts'].get(k['counter'],
                                                           0),
                 'train_finetune_rank_step': dp['launches'].get(
-                    k['counter'], 0)},
+                    k['counter'], 0),
+                'detection_fused_pyramid': rem['detection'].get(
+                    k['counter'], 0),
+                'joint_fused_pyramid': rem['joint'].get(k['counter'], 0)},
             'max_abs_err': a['max_abs_err'], 'ms': a['ms'],
             'plain_ms': a['plain_ms'],
             'bound_ms': max(a['t_ops'], a['t_bytes']) * 1e3,

@@ -37,9 +37,9 @@ class LIFusionConfig:
     DeConv_Reduce: Tuple[int, ...] = (16, 16, 16, 16)
     DeConv_Kernels: Tuple[int, ...] = (2, 4, 8, 16)
     DeConv_Strides: Tuple[int, ...] = (2, 4, 8, 16)
-    # eval-only fused pyramid->gather in the JAX package; its eval mode is
-    # still to be ported, so the port always takes the materialize-then-
-    # sample path (the default)
+    # the eval forward samples the image pyramid at the points without
+    # making the full-resolution map (models/image_backbone.py::
+    # ImagePyramidFusion); training always makes the map
     FUSED_PYRAMID: bool = False
 
 

@@ -6,11 +6,16 @@ JAX package, gt boxes are padded to a fixed `max_gt` a batch instead of the
 per-batch max (reference collate, kitti_dataset.py:394-403), so every batch
 has one shape.
 
-A sample is bit-equal to the JAX package's `KittiDataset(use_native=False)`
-with the same seed: the same `np.random.RandomState` draws in the same
-order, and the projection and filters in numpy with the same dtypes.  The
-JAX package's C++ loader is not copied (`np.fromfile` reads the `.bin`),
-and the PNGs are read by `utils/png.py` instead of PIL.
+Points are read, projected and filtered by the port's C++ loader
+(`jmodt_torch/native`, the JAX package's `pointcloud.cpp`) by default, as
+the JAX package does; with `use_native=False`, or where the library cannot
+be built, by `np.fromfile` and the numpy projection.  The two agree within
+rtol 2e-4 (float64 against float32; a point on a filter's edge may flip).
+A sample is bit-equal to the JAX package's `KittiDataset` with the same
+seed and the same `use_native`: the same `np.random.RandomState` draws in
+the same order, the same C++ source and flags, or the projection and
+filters in numpy with the same dtypes.  The PNGs are read by
+`utils/png.py` instead of PIL.
 
 Framework-independent: plain `__len__`/`__getitem__` + `collate_batch`, so it
 plugs into `torch.utils.data.DataLoader` (for multi-process prefetch) or a
@@ -24,6 +29,7 @@ from typing import Optional
 
 import numpy as np
 
+from jmodt_torch import native
 from jmodt_torch.config import Config
 from jmodt_torch.utils.calibration import Calibration
 from jmodt_torch.utils.object3d import get_objects_from_label
@@ -92,7 +98,8 @@ class KittiDataset:
                  challenge: str = 'tracking',
                  fixed_img_size=(384, 1280), cfg: Optional[Config] = None,
                  max_gt: int = 32, rpn_labels: Optional[bool] = None,
-                 seed: int = 0, raw_uint8_images: bool = False):
+                 seed: int = 0, use_native: bool = True,
+                 raw_uint8_images: bool = False):
         assert mode in ('TRAIN', 'EVAL', 'TEST'), f'invalid mode {mode}'
         self.cfg = cfg or Config()
         self.split = split
@@ -105,6 +112,7 @@ class KittiDataset:
         self.rng = np.random.RandomState(seed)
         self.rpn_labels = (not self.cfg.RPN.FIXED if rpn_labels is None
                            else rpn_labels)
+        self.use_native = use_native
         # ship raw uint8 images and normalize on the device
         # (models/inference.py): 4x less host-to-device traffic
         self.raw_uint8_images = raw_uint8_images
@@ -243,13 +251,26 @@ class KittiDataset:
         img = self.get_normalized_image(sample_id)
         img_shape = self.get_image_shape(sample_id)
 
-        pts_lidar = self.get_lidar(sample_id)
-        pts_rect = calib.lidar_to_rect(pts_lidar[:, 0:3])
-        pts_img, pts_depth = calib.rect_to_img(pts_rect)
-        valid = self._valid_flag(pts_rect, pts_img, pts_depth, img_shape)
-        pts_rect = pts_rect[valid]
-        pts_intensity = pts_lidar[valid, 3]
-        pts_xy = pts_img[valid]
+        loaded = None
+        if self.use_native:
+            pts_lidar = native.load_velodyne(
+                os.path.join(self.lidar_dir, '%06d.bin' % sample_id))
+            if pts_lidar is not None:
+                loaded = native.project_and_filter(
+                    pts_lidar, calib.V2C, calib.R0, calib.P2, img_shape,
+                    scope=(cfg.PC_AREA_SCOPE if cfg.PC_REDUCE_BY_RANGE
+                           else None))
+        if loaded is not None:
+            pts_rect, pts_intensity, pts_xy = loaded
+        else:
+            pts_lidar = self.get_lidar(sample_id)
+            pts_rect = calib.lidar_to_rect(pts_lidar[:, 0:3])
+            pts_img, pts_depth = calib.rect_to_img(pts_rect)
+            valid = self._valid_flag(pts_rect, pts_img, pts_depth,
+                                     img_shape)
+            pts_rect = pts_rect[valid]
+            pts_intensity = pts_lidar[valid, 3]
+            pts_xy = pts_img[valid]
 
         # near/far sampling at 40 m (kitti_dataset.py:231-247)
         if self.npoints < len(pts_rect):

@@ -19,7 +19,9 @@ their widths from its own tensors.  One tracker is kept per (w_app, w_iou,
 w_dis), the weights its affinity is built with, and reset per sequence;
 the other knobs (cls_thresh, t_miss, t_hit, w_cls, w_se, match_thresh) are
 set on it per config.  The best config's flags are printed for a rerun of
-`python -m jmodt_torch.eval --only_tracking`.  Runs on the CUDA card
+`python -m jmodt_torch.eval --only_tracking`, with `--hungarian` when the
+sweep ran with it, which `sweep_results.json` also records (the JAX tool
+drops it from both, so its rerun solves with MIP).  Runs on the CUDA card
 unless given `--device cpu`.
 """
 
@@ -177,8 +179,8 @@ def main(argv=None) -> dict:
 
     ranked = sorted([r for r in results if r['mota'] is not None],
                     key=lambda r: -r['mota'])
-    summary = {'grid': grid, 'base': base, 'results': results,
-               'best': ranked[0] if ranked else None}
+    summary = {'grid': grid, 'base': base, 'hungarian': args.hungarian,
+               'results': results, 'best': ranked[0] if ranked else None}
     with open(os.path.join(args.output_dir, 'sweep_results.json'), 'w') as f:
         json.dump(summary, f, indent=1)
         f.write('\n')
@@ -191,6 +193,8 @@ def main(argv=None) -> dict:
         best = ranked[0]
         flags = ' '.join(f'--{k} {v}' for k, v in best.items()
                          if k not in ('tag', 'mota'))
+        if args.hungarian:      # the assignment the ranking was made with
+            flags += ' --hungarian'
         logger.info('\nbest: MOTA %.4f; rerun with: python -m '
                     'jmodt_torch.eval --only_tracking %s', best['mota'],
                     flags)

@@ -66,7 +66,16 @@ class AttentionFusion(nn.Module):
 
 class PointNet2MSG(nn.Module):
     """forward(pc (B, N, 3 + C), image (B, H, W, 3) | None, xy (B, N, 2) |
-    None) -> (xyz (B, N, 3), features (B, N, out))."""
+    None, train_step=False) -> (xyz (B, N, 3), features (B, N, out)).
+
+    With LI_FUSION.FUSED_PYRAMID the image pyramid is sampled at the points
+    by the fused gather (`ImagePyramidFusion`), on the JAX package's gate
+    (`jmodt_tpu/models/backbone.py:167-176`): in eval mode, where autograd
+    does not record the pyramid (`pointnet2.sa_route`'s notion), and not
+    inside a training step (`train_step`, which `PointRCNN`'s train forward
+    passes as the JAX package passes `under_grad=train`: under RPN.FIXED the
+    port runs the RPN in eval mode under no_grad, where the JAX package
+    differentiates it and takes the materialized map)."""
 
     def __init__(self, cfg: Config, input_channels: int = 0,
                  use_xyz: bool = True, device=None):
@@ -105,7 +114,7 @@ class PointNet2MSG(nn.Module):
                 li.IMG_FEATURES_CHANNEL // 4, li.IMG_FEATURES_CHANNEL,
                 li.IMG_FEATURES_CHANNEL, dtype=dtype, device=device)
 
-    def forward(self, pc, image=None, xy=None):
+    def forward(self, pc, image=None, xy=None, train_step: bool = False):
         cfg = self.cfg
         n_sa = len(cfg.RPN.SA_CONFIG.NPOINTS)
         use_fusion = cfg.LI_FUSION.ENABLED and image is not None
@@ -138,7 +147,14 @@ class PointNet2MSG(nn.Module):
                 l_xyz[i - 1], l_xyz[i], l_features[i - 1], l_features[i])
 
         if use_fusion:
-            img_full = self.img_pyramid(img_levels)
-            l_features[0] = self.final_fusion(
-                l_features[0], feature_gather(img_full, xy))
+            pyramid = self.img_pyramid
+            under_grad = torch.is_grad_enabled() and (
+                xy.requires_grad or any(t.requires_grad for t in img_levels)
+                or any(p.requires_grad for p in pyramid.parameters()))
+            if (cfg.LI_FUSION.FUSED_PYRAMID and not pyramid.training
+                    and not under_grad and not train_step):
+                img_pts = pyramid(img_levels, xy)
+            else:
+                img_pts = feature_gather(pyramid(img_levels), xy)
+            l_features[0] = self.final_fusion(l_features[0], img_pts)
         return l_xyz[0], l_features[0]

@@ -9,6 +9,7 @@ Conv2d OIHW, ConvTranspose2d (Cin, Cout, k, k).
 
 from __future__ import annotations
 
+import collections
 from typing import Sequence
 
 import torch
@@ -17,6 +18,10 @@ from torch import nn
 
 from jmodt_torch.models.layers import BatchNorm
 from jmodt_torch.ops.depth_to_space import depth_to_space
+
+# ImagePyramidFusion forwards by route: 'fused' (the eval gather at the
+# points, FUSED_PYRAMID) or 'materialized' (the full-resolution map)
+pyramid_routes: collections.Counter = collections.Counter()
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -50,6 +55,32 @@ class BasicBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.BatchNorm_0(_conv(self.Conv_0, x, self.dtype)))
         return _conv(self.Conv_1, x, self.dtype)
+
+
+def _bilinear_corners(h: int, w: int, xy: torch.Tensor):
+    """Corner indices, in-map masks and blend weights of a grid_sample
+    (align_corners=True, zero padding) at full-resolution size (h, w), as
+    `jmodt_tpu/models/image_backbone.py::_bilinear_corners`: the weights
+    come from the unclamped floor, and a corner outside the map counts 0.
+
+    Returns ((u0, u1), (v0, v1), (in_u0, in_u1), (in_v0, in_v1), au, av):
+    u / v clamped int64 indices, au / av float32 with a trailing axis."""
+    xy = xy.float()
+    u = (xy[..., 0] + 1.0) * 0.5 * (w - 1)
+    v = (xy[..., 1] + 1.0) * 0.5 * (h - 1)
+    u0f = torch.floor(u)
+    v0f = torch.floor(v)
+    au = (u - u0f)[..., None]
+    av = (v - v0f)[..., None]
+
+    def clampi(x, hi):
+        return torch.clamp(x, 0, hi).long()
+
+    uu = (clampi(u0f, w - 1), clampi(u0f + 1, w - 1))
+    vv = (clampi(v0f, h - 1), clampi(v0f + 1, h - 1))
+    inu = ((u0f >= 0) & (u0f <= w - 1), (u0f + 1 >= 0) & (u0f + 1 <= w - 1))
+    inv = ((v0f >= 0) & (v0f <= h - 1), (v0f + 1 >= 0) & (v0f + 1 <= h - 1))
+    return uu, vv, inu, inv, au, av
 
 
 def feature_gather(feature_map: torch.Tensor, xy: torch.Tensor
@@ -110,7 +141,19 @@ class NonOverlapDeconv(nn.Module):
 
 class ImagePyramidFusion(nn.Module):
     """Deconv each level back to full resolution, concat, 1x1 conv + BN +
-    ReLU (the materialized map; sampled afterwards by feature_gather)."""
+    ReLU.
+
+    forward(img_levels) returns that map (B, H, W, out), sampled afterwards
+    by feature_gather.  forward(img_levels, xy), the eval-only fused gather
+    of `jmodt_tpu/models/image_backbone.py::_wide_gather` (FUSED_PYRAMID),
+    returns the map sampled at xy (B, N, 2) without making it: the levels'
+    pre-conv maps are concatenated to (B, H*W, sum r), the four bilinear
+    corners of every point are gathered as one (B, 4N, sum r) take, the
+    1x1 conv, BN with its running statistics and ReLU run on those 4N rows
+    instead of H*W pixels, and the corners outside the map are zeroed after
+    the ReLU before the blend, which equals feature_gather of the map.
+    Both routes run the same submodules in the same order (the deconvs
+    through K6 on the card)."""
 
     def __init__(self, in_channels: Sequence[int],
                  reduce_channels: Sequence[int], kernels: Sequence[int],
@@ -127,8 +170,34 @@ class ImagePyramidFusion(nn.Module):
                                 device=device)
         self.BatchNorm_0 = BatchNorm(out_channels, device=device)
 
-    def forward(self, img_levels):
+    def forward(self, img_levels, xy=None):
         ups = [getattr(self, f'NonOverlapDeconv_{i}')(f)
                for i, f in enumerate(img_levels)]
+        if xy is not None:
+            if self.training:
+                raise RuntimeError('the fused pyramid gather is an eval-only '
+                                   'route: BatchNorm needs the whole map '
+                                   'in training')
+            pyramid_routes['fused'] += 1
+            return self._wide_gather(ups, xy)
+        pyramid_routes['materialized'] += 1
         x = _conv(self.Conv_0, torch.cat(ups, dim=-1), self.dtype)
         return torch.relu(self.BatchNorm_0(x))
+
+    def _wide_gather(self, ups, xy):
+        b, h, w, _ = ups[0].shape
+        n = xy.shape[1]
+        flat = torch.cat([u.reshape(b, h * w, -1) for u in ups], dim=-1)
+        uu, vv, inu, inv, au, av = _bilinear_corners(h, w, xy)
+        corners = [(ci, cj) for ci in range(2) for cj in range(2)]
+        idx = torch.cat([vv[ci] * w + uu[cj] for ci, cj in corners], dim=1)
+        g = torch.gather(flat, 1, idx[..., None].expand(-1, -1,
+                                                        flat.shape[-1]))
+        x = _conv(self.Conv_0, g[:, :, None, :], self.dtype)   # (B, 4N, 1, C)
+        f = torch.relu(self.BatchNorm_0(x))[:, :, 0, :].reshape(b, 4, n, -1)
+        ok = torch.stack([inv[ci] & inu[cj] for ci, cj in corners], dim=1)
+        f = f * ok[..., None].to(f.dtype)
+        au, av = au.to(f.dtype), av.to(f.dtype)
+        top = f[:, 0] * (1 - au) + f[:, 1] * au
+        bot = f[:, 2] * (1 - au) + f[:, 3] * au
+        return top * (1 - av) + bot * av

@@ -20,6 +20,10 @@ apply and marks the RPN `under_grad`, so its fused SA levels 1-3 take their
 tensor-op twin (Pallas defines no JVP there); here the RPN is not under
 autograd, so `sa_route` takes its eval routes and K4 runs at those levels.
 PyTorch has no such limit: the two routes compute the same function.
+The image pyramid follows the JAX route, though: a training step passes
+`train_step` down to the backbone, which then makes the full-resolution
+map even under LI_FUSION.FUSED_PYRAMID, as the JAX package's
+differentiated apply does.
 """
 
 from __future__ import annotations
@@ -107,7 +111,8 @@ class PointRCNN(nn.Module):
         fixed = cfg.RPN.FIXED
         assert gt_boxes3d is not None, 'mode TRAIN needs gt_boxes3d'
         with torch.set_grad_enabled(torch.is_grad_enabled() and not fixed):
-            out = dict(self.rpn(pts_input, img, pts_xy, generator))
+            out = dict(self.rpn(pts_input, img, pts_xy, generator,
+                                train_step=self.training))
         out['backbone_xyz'] = out['backbone_xyz'].detach()       # :73, :83
         features = out['backbone_features']
         if fixed:

@@ -39,8 +39,9 @@ class RPN(nn.Module):
         self.cls_head = HeadMLP(c, cfg.RPN.CLS_FC, 1, **kw)
         self.reg_head = HeadMLP(c, cfg.RPN.REG_FC, rpn_reg_channels(cfg), **kw)
 
-    def forward(self, pts_input, img=None, pts_xy=None, generator=None):
-        xyz, feats = self.backbone(pts_input, img, pts_xy)
+    def forward(self, pts_input, img=None, pts_xy=None, generator=None,
+                train_step: bool = False):
+        xyz, feats = self.backbone(pts_input, img, pts_xy, train_step)
         return {'rpn_cls': self.cls_head(feats, generator),
                 'rpn_reg': self.reg_head(feats, generator),
                 'backbone_xyz': xyz, 'backbone_features': feats}

@@ -3,6 +3,7 @@
     python3 -m jmodt_torch.profile_step [--path joint|batched|detection]
                                         [--streams S] [--frames N]
                                         [--dtype bfloat16]
+                                        [--set KEY VALUE ...]
 
 `--path joint` (the default) runs the joint detect + track step at the
 default Config() with RPN.MEGA_SA (16384 points, 384x1280 uint8 image,
@@ -11,16 +12,19 @@ top 16 detections, score threshold 0.2, Hungarian assignment);
 `--path batched` runs the same step on `--streams` (default 4) streams in
 lockstep (`make_batched_joint_step`), a frame being one lockstep frame of
 all streams; `--path detection` runs the detection step alone at the
-default Config().  Synthetic frames; one warm-up frame first.  Prints:
+default Config().  `--set` overrides config keys
+(`config.config_from_overrides`, e.g. `--set LI_FUSION.FUSED_PYRAMID
+True`) and takes the rest of the line.  Synthetic frames; one warm-up
+frame first.  Prints:
 
 * stages: wall ms of each stage of one frame, with the device synchronized
   at every stage boundary (the syncs remove overlap, so the stages add up
   to a little more than an unsynchronized frame).  Joint and batched:
   detection, top-K and packing, tracker; detection: the backbone's and
   heads' modules, proposals, RoI pooling and the final NMS;
-* joint and batched: host syncs per frame, the tracker's own device-to-host
-  reads (`device_tracker.host_syncs`) and every synchronizing CUDA call of
-  the frame (torch's sync debug mode);
+* host syncs per frame: every synchronizing CUDA call of the frame (torch's
+  sync debug mode) and, joint and batched, the tracker's own
+  device-to-host reads (`device_tracker.host_syncs`);
 * frame: unsynchronized wall ms per frame over N frames (batched: also per
   stream-frame), the device time per frame from torch.profiler as the
   union of the kernels' intervals (kernels that overlap, as K5's two
@@ -235,12 +239,18 @@ def main() -> None:
     ap.add_argument('--frames', type=int, default=3)
     ap.add_argument('--dtype', default='bfloat16',
                     choices=('bfloat16', 'float32'))
+    ap.add_argument('--set', dest='set_cfgs', default=None,
+                    nargs=argparse.REMAINDER,
+                    help='config overrides KEY VALUE ... (the rest of the '
+                         'line)')
     args = ap.parse_args()
 
-    from jmodt_torch.config import Config
+    from jmodt_torch.config import Config, config_from_overrides
     from jmodt_torch.data.synthetic import make_eval_frame
 
     cfg = dataclasses.replace(Config(), DTYPE=args.dtype)
+    if args.set_cfgs:
+        cfg = config_from_overrides(cfg, args.set_cfgs)
     if args.path != 'detection':
         cfg = dataclasses.replace(
             cfg, RPN=dataclasses.replace(cfg.RPN, MEGA_SA=True))
@@ -280,11 +290,10 @@ def main() -> None:
     print(f'  {rest:32s} {total - sum(times.values()):9.3f}')
     print(f'  {"total":32s} {total:9.3f}')
 
-    if args.path != 'detection':
-        trk, allsync = _host_syncs(run, frames[1:])
-        print(f'host syncs per frame: tracker {trk:.1f} (device-to-host '
-              f'reads), whole frame {allsync:.1f} (synchronizing CUDA calls, '
-              f'sync debug mode; {args.frames} frames)')
+    trk, allsync = _host_syncs(run, frames[1:])
+    print(f'host syncs per frame: tracker {trk:.1f} (device-to-host '
+          f'reads), whole frame {allsync:.1f} (synchronizing CUDA calls, '
+          f'sync debug mode; {args.frames} frames)')
 
     # unsynchronized frames under the profiler
     acts = [torch.profiler.ProfilerActivity.CPU,

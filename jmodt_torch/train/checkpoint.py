@@ -145,9 +145,17 @@ def _port_names(saved: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             if is_reference_state(saved) else saved)
 
 
+def read_checkpoint_state(filename: str) -> dict:
+    """The file's state, its `model_state` under the port's names (CPU
+    tensors)."""
+    state = _read(filename)
+    return dict(state, model_state=_port_names(state.get('model_state')
+                                               or {}))
+
+
 def read_model_state(filename: str) -> Dict[str, torch.Tensor]:
     """The file's `model_state` under the port's names (CPU tensors)."""
-    return _port_names(_read(filename).get('model_state') or {})
+    return read_checkpoint_state(filename)['model_state']
 
 
 def read_head_state(filename: str

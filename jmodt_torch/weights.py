@@ -23,6 +23,10 @@ port's copy of `jmodt_tpu/utils/torch_import.py::convert_model_state`
 `reference_state_to_state_dict` names the result as the port's
 state_dict, which `train/checkpoint.py` loads for any `.pth` in the
 reference's names.  Nothing is downloaded: the user supplies the file.
+`export_reference_state` goes the other way, a port model or state_dict to
+a reference `model_state` (the port's copy of
+`jmodt_tpu/utils/torch_import.py::export_model_state`), which
+`python -m jmodt_torch.tools.export_torch_weights` writes as a `.pth`.
 """
 
 from __future__ import annotations
@@ -362,3 +366,189 @@ def reference_state_to_state_dict(state_dict: Mapping[str, Any]
                                   ) -> Dict[str, torch.Tensor]:
     """A reference `model_state` as the port's state_dict."""
     return jax_variables_to_state_dict(reference_to_jax_variables(state_dict))
+
+
+# ---------------------------------------------------------------------------
+# The port -> a reference state_dict: the exact inverse of the import above.
+# The conv-bias-before-BN units get a zero conv bias (the import absorbed it
+# into the BN mean, so zero round-trips bit for bit and the reference's
+# forward is unchanged).  Keys include num_batches_tracked so the
+# reference's `load_state_dict(strict=True)` succeeds.
+
+def _unconv1d(k: np.ndarray) -> np.ndarray:      # (Cin,Cout)->(Cout,Cin,1)
+    return np.ascontiguousarray(k.T)[:, :, None]
+
+
+def _unconv2d(k: np.ndarray) -> np.ndarray:      # (Cin,Cout)->(Cout,Cin,1,1)
+    return np.ascontiguousarray(k.T)[:, :, None, None]
+
+
+def _unlinear(k: np.ndarray) -> np.ndarray:      # (Cin,Cout)->(Cout,Cin)
+    return np.ascontiguousarray(k.T)
+
+
+def _unconv(k: np.ndarray) -> np.ndarray:        # (kH,kW,Cin,Cout) NCHW-back
+    return np.ascontiguousarray(np.transpose(k, (3, 2, 0, 1)))
+
+
+def _undeconv(k: np.ndarray) -> np.ndarray:      # inverse of _deconv_kernel
+    return np.ascontiguousarray(
+        np.transpose(np.asarray(k)[::-1, ::-1], (2, 3, 0, 1)))
+
+
+def jax_variables_to_reference(tree: Mapping[str, Any]
+                               ) -> Dict[str, np.ndarray]:
+    """A flax-layout ``{'params', 'batch_stats'}`` tree -> a reference
+    state_dict of numpy arrays, in the reference's key order.
+
+    Emits only the units present in the tree (a lidar-only tree exports a
+    lidar-only state_dict, loadable with strict=False).
+    """
+    params = tree['params']
+    stats = tree.get('batch_stats', {})
+    out: Dict[str, np.ndarray] = {}
+
+    def get(d, path):
+        for p in path:
+            if d is None or p not in d:
+                return None
+            d = d[p]
+        return d
+
+    def bn(prefix, p_sub, s_sub):
+        out[prefix + '.weight'] = _np32(p_sub['scale'])
+        out[prefix + '.bias'] = _np32(p_sub['bias'])
+        out[prefix + '.running_mean'] = _np32(s_sub['mean'])
+        out[prefix + '.running_var'] = _np32(s_sub['var'])
+        out[prefix + '.num_batches_tracked'] = np.asarray(0, np.int64)
+
+    def pw(our_path, tprefix, rank, spell='pt'):
+        """One PointwiseLayer unit (Dense [+ BatchNorm])."""
+        sub = get(params, our_path)
+        if sub is None:
+            return
+        k = _np32(sub['Dense_0']['kernel'])
+        w = _unconv2d(k) if rank == 4 else _unconv1d(k)
+        s_sub = get(stats, our_path + ('BatchNorm_0',))
+        if spell == 'pt':
+            out[tprefix + '.conv.weight'] = w
+            if s_sub is None:
+                out[tprefix + '.conv.bias'] = _np32(sub['Dense_0']['bias'])
+            else:
+                bn(tprefix + '.bn.bn', sub['BatchNorm_0'], s_sub)
+        elif spell == 'flat1':   # Fusion conv1 + bn1 (bias absorbed -> 0)
+            out[tprefix + '.conv1.weight'] = w
+            out[tprefix + '.conv1.bias'] = np.zeros(k.shape[1], np.float32)
+            bn(tprefix + '.bn1', sub['BatchNorm_0'], s_sub)
+        elif spell == 'seq01':   # IA_Layer conv1 Sequential [Conv1d, BN]
+            out[tprefix + '.0.weight'] = w
+            out[tprefix + '.0.bias'] = np.zeros(k.shape[1], np.float32)
+            bn(tprefix + '.1', sub['BatchNorm_0'], s_sub)
+        else:  # pragma: no cover
+            raise AssertionError(spell)
+
+    def dense(our_path, tprefix, rank):
+        sub = get(params, our_path)
+        if sub is None:
+            return
+        k = _np32(sub['kernel'])
+        w = {2: _unlinear, 3: _unconv1d, 4: _unconv2d}[rank](k)
+        pre = tprefix + ('' if rank == 2 else '.conv')
+        out[pre + '.weight'] = w
+        out[pre + '.bias'] = _np32(sub['bias'])
+
+    bb = ('rpn', 'backbone')
+    for k in range(8):
+        if get(params, bb + (f'sa_{k}',)) is None:
+            break
+        for i in range(8):
+            mlp = get(params, bb + (f'sa_{k}', f'mlp_{i}'))
+            if mlp is None:
+                break
+            for j in range(len(mlp)):
+                pw(bb + (f'sa_{k}', f'mlp_{i}', f'PointwiseLayer_{j}'),
+                   f'rpn.backbone_net.SA_modules.{k}.mlps.{i}.layer{j}', 4)
+    for k in range(8):
+        fp = get(params, bb + (f'fp_{k}', 'PointwiseMLP_0'))
+        if fp is None:
+            break
+        for j in range(len(fp)):
+            pw(bb + (f'fp_{k}', 'PointwiseMLP_0', f'PointwiseLayer_{j}'),
+               f'rpn.backbone_net.FP_modules.{k}.mlp.layer{j}', 4)
+    for k in range(8):
+        blk = get(params, bb + (f'img_block_{k}',))
+        if blk is None:
+            break
+        t = f'rpn.backbone_net.Img_Block.{k}'
+        out[t + '.conv1.weight'] = _unconv(_np32(blk['Conv_0']['kernel']))
+        out[t + '.conv2.weight'] = _unconv(_np32(blk['Conv_1']['kernel']))
+        bn(t + '.bn1', blk['BatchNorm_0'],
+           get(stats, bb + (f'img_block_{k}', 'BatchNorm_0')))
+    for k in range(8):
+        name, t = (f'fusion_{k}',
+                   f'rpn.backbone_net.Fusion_Conv.{k}')
+        if get(params, bb + (name,)) is None:
+            break
+        pw(bb + (name, 'IALayer_0', 'PointwiseLayer_0'),
+           t + '.IA_Layer.conv1', 3, spell='seq01')
+        for fi in range(3):
+            dense(bb + (name, 'IALayer_0', f'Dense_{fi}'),
+                  t + f'.IA_Layer.fc{fi + 1}', 2)
+        pw(bb + (name, 'PointwiseLayer_0'), t, 3, spell='flat1')
+    if get(params, bb + ('final_fusion',)) is not None:
+        t = 'rpn.backbone_net.final_fusion_img_point'
+        pw(bb + ('final_fusion', 'IALayer_0', 'PointwiseLayer_0'),
+           t + '.IA_Layer.conv1', 3, spell='seq01')
+        for fi in range(3):
+            dense(bb + ('final_fusion', 'IALayer_0', f'Dense_{fi}'),
+                  t + f'.IA_Layer.fc{fi + 1}', 2)
+        pw(bb + ('final_fusion', 'PointwiseLayer_0'), t, 3, spell='flat1')
+    pyr = get(params, bb + ('img_pyramid',))
+    if pyr is not None:
+        for k in range(8):
+            dk = pyr.get(f'NonOverlapDeconv_{k}')
+            if dk is None:
+                break
+            t = f'rpn.backbone_net.DeConv.{k}'
+            out[t + '.weight'] = _undeconv(_np32(dk['kernel']))
+            out[t + '.bias'] = _np32(dk['bias'])
+        out['rpn.backbone_net.image_fusion_conv.weight'] = _unconv(
+            _np32(pyr['Conv_0']['kernel']))
+        out['rpn.backbone_net.image_fusion_conv.bias'] = _np32(
+            pyr['Conv_0']['bias'])
+        bn('rpn.backbone_net.image_fusion_bn', pyr['BatchNorm_0'],
+           get(stats, bb + ('img_pyramid', 'BatchNorm_0')))
+    for head, t in [('cls_head', 'rpn.rpn_cls_layer'),
+                    ('reg_head', 'rpn.rpn_reg_layer')]:
+        pw(('rpn', head, 'PointwiseLayer_0'), t + '.0', 3)
+        dense(('rpn', head, 'Dense_0'), t + '.2', 3)
+    for k in range(8):
+        mlp = get(params, ('rcnn', f'sa_{k}', 'mlp_0'))
+        if mlp is None:
+            break
+        for j in range(len(mlp)):
+            pw(('rcnn', f'sa_{k}', 'mlp_0', f'PointwiseLayer_{j}'),
+               f'rcnn_net.SA_modules.{k}.mlps.0.layer{j}', 4)
+    for j in range(2):
+        pw(('rcnn', 'xyz_up', f'PointwiseLayer_{j}'),
+           f'rcnn_net.xyz_up_layer.layer{j}', 4)
+    pw(('rcnn', 'merge_down', 'PointwiseLayer_0'),
+       'rcnn_net.merge_down_layer.layer0', 4)
+    for head, t in [(('rcnn', 'cls_head'), 'rcnn_net.cls_layer'),
+                    (('rcnn', 'reg_head'), 'rcnn_net.reg_layer'),
+                    (('rcnn', 'link_layer', 'mlp'), 'rcnn_net.link_layer'),
+                    (('rcnn', 'se_layer', 'mlp'), 'rcnn_net.se_layer')]:
+        pw(head + ('PointwiseLayer_0',), t + '.0', 3)
+        pw(head + ('PointwiseLayer_1',), t + '.2', 3)
+        dense(head + ('Dense_0',), t + '.3', 3)
+    return out
+
+
+def export_reference_state(model_or_state: Any) -> Dict[str, np.ndarray]:
+    """A port model, or its state_dict, as a reference PointRCNN
+    `model_state` of numpy arrays: the inverse of
+    `reference_state_to_state_dict`, exact.  A lidar-only model exports
+    the lidar-only subset."""
+    sd = (model_or_state.state_dict()
+          if isinstance(model_or_state, torch.nn.Module) else model_or_state)
+    return jax_variables_to_reference(state_dict_to_jax_variables(sd))

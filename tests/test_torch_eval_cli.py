@@ -6,10 +6,10 @@ The tree is a raw KITTI tracking tree of two validation sequences
 converter.  The weights are the small config's, the port's random ones from a seed:
 the JAX CLI reads them as its flax checkpoint, the port as a `.pth` of the
 same tensors.  Both CLIs run in this process, through their
-stage functions.  The JAX dataset is pinned to its numpy loader (the port's
-only loader), since its C++ one rounds the projection differently, and the
-JAX 3-NN to its Pallas kernel's semantics, as tests/test_torch_models.py
-does and explains.
+stage functions.  Both datasets are pinned to their numpy loaders,
+whose samples are bit-equal (the C++ loaders round the projection in
+float64), and the JAX 3-NN to its Pallas kernel's semantics, as
+tests/test_torch_models.py does and explains.
 
 - Stage 1: every frame's `packed` rows within 1e-4 of their scale, keep
   masks and counts exact; the recall counters exact; the AP dict within
@@ -132,10 +132,13 @@ def _recording(module, name, key):
 def test_stage1_matches_jax(setup, tmp_path, monkeypatch):
     import jmodt_tpu.models.pointnet2 as jax_pointnet2
     import jmodt_tpu.native
+    import jmodt_torch.native
     root, jax_ckpt, port_pth, _, _ = setup
     jcfg, tcfg = _cfgs()
     jax_cli = _jax_cli()
+    # both datasets read with numpy, whose samples are bit-equal
     monkeypatch.setattr(jmodt_tpu.native, 'get_lib', lambda: None)
+    monkeypatch.setattr(jmodt_torch.native, 'get_lib', lambda: None)
     monkeypatch.setattr(jax_pointnet2, 'three_nn', _three_nn_kernel_semantics)
     wrapped, seen_j = _recording(jax_cli, 'make_detection_step', 'packed')
     monkeypatch.setattr(jax_cli, 'make_detection_step', wrapped)

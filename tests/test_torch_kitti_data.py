@@ -352,7 +352,7 @@ def test_dataset_samples_match_jax(converted, mode, split, npoints, uint8):
     kw = dict(npoints=npoints, split=split, mode=mode, max_gt=8,
               fixed_img_size=(128, 416), raw_uint8_images=uint8, seed=5)
     a = JaxKittiDataset(str(jax_root), cfg=jcfg, use_native=False, **kw)
-    b = KittiDataset(str(torch_root), cfg=tcfg, **kw)
+    b = KittiDataset(str(torch_root), cfg=tcfg, use_native=False, **kw)
     assert a.sample_id_list == b.sample_id_list
     assert len(b) == (8 if split == 'val' else 4)
     for i in range(len(b)):
@@ -376,7 +376,7 @@ def test_train_pairs_with_augmentation_match_jax(converted):
     kw = dict(npoints=512, split='train', mode='TRAIN', max_gt=8,
               fixed_img_size=(128, 416), seed=7)
     a = JaxKittiDataset(str(jax_root), cfg=jcfg, use_native=False, **kw)
-    b = KittiDataset(str(torch_root), cfg=tcfg, **kw)
+    b = KittiDataset(str(torch_root), cfg=tcfg, use_native=False, **kw)
     assert a.sample_pair_id_list == b.sample_pair_id_list
     assert len(b) == 3                       # 0001 is the training sequence
     for i in range(len(b)):

@@ -12,10 +12,13 @@ from a seed: the JAX sweep reads them from a flax checkpoint
 - Every config's tracking txt byte-equal, its MOTA within 1e-6, the same
   ranking and the same `best`, with MIP and with `--hungarian`.
 - The module runs from the command line at `--device cpu`.
+- The best config's rerun line and `sweep_results.json` name
+  `--hungarian` when the sweep ran with it.
 """
 
 import importlib.util
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -169,3 +172,28 @@ def test_sweep_module_runs(setup, tmp_path):
     assert 'rerun with: python -m jmodt_torch.eval --only_tracking' \
         in res.stderr
 
+
+
+@pytest.mark.parametrize('hungarian', [False, True],
+                         ids=['mip', 'hungarian'])
+def test_rerun_line_keeps_hungarian(setup, tmp_path, caplog, hungarian):
+    """The best config's rerun line and sweep_results.json carry the
+    assignment the sweep ranked with (`tools/mot_sweep.py` drops
+    `--hungarian` from both)."""
+    root, det, _, port_pth = setup
+    with caplog.at_level(logging.INFO, logger='jmodt_torch.eval.mot_sweep'):
+        summary = mot_sweep.main(
+            ['--det_output', str(det), '--data_root', str(root), '--ckpt',
+             port_pth, '--output_dir', str(tmp_path), '--device', 'cpu',
+             '--grid', json.dumps({'cls_thresh': [0.3], 't_miss': [2],
+                                   't_hit': [0]})]
+            + (['--hungarian'] if hungarian else []))
+    saved = json.loads((tmp_path / 'sweep_results.json').read_text())
+    assert saved['hungarian'] is summary['hungarian'] is hungarian
+    rerun = [r.getMessage() for r in caplog.records
+             if 'rerun with' in r.getMessage()]
+    assert len(rerun) == 1 and summary['best'] is not None
+    flags = rerun[0].split('--only_tracking', 1)[1].split()
+    assert ('--hungarian' in flags) == hungarian
+    assert flags[:6] == ['--cls_thresh', '0.3', '--t_hit', '0', '--t_miss',
+                         '2']

@@ -74,8 +74,8 @@ KITTI_TRAIN_SLICE_MODULES = (
     'jmodt_torch.utils.kitti_utils', 'jmodt_torch.utils.flops')
 
 
-def _imports_with_jax_blocked(modules):
-    blocked = FORBIDDEN + ('PIL',)
+def _imports_with_jax_blocked(modules, also_blocked=()):
+    blocked = FORBIDDEN + ('PIL',) + tuple(also_blocked)
     code = ('import sys\n'
             + ''.join(f'sys.modules[{m!r}] = None\n' for m in blocked)
             + ''.join(f'import {m}\n' for m in modules)
@@ -106,6 +106,36 @@ PARALLEL_SLICE_MODULES = (
 def test_parallel_slice_imports_with_jax_blocked():
     """So do data-parallel training and the split lockstep step."""
     _imports_with_jax_blocked(PARALLEL_SLICE_MODULES)
+
+
+REMAINDER_SLICE_MODULES = (
+    'jmodt_torch.native', 'jmodt_torch.tools',
+    'jmodt_torch.tools.export_torch_weights', 'jmodt_torch.tools.oracle_ap',
+    'jmodt_torch.tools.recall_diagnosis', 'jmodt_torch.tools.ladder_report',
+    'jmodt_torch.tools.synthetic_ladder', 'jmodt_torch.tools.viewer',
+    'jmodt_torch.models.image_backbone')
+
+
+def test_remainder_slice_imports_with_jax_blocked():
+    """So do the native loader and the tools, the viewer also without
+    matplotlib and cv2 (the card's machine has neither); the scan of
+    every port file covers both subpackages, and the loader's C++ source
+    is the port's own copy."""
+    _imports_with_jax_blocked(REMAINDER_SLICE_MODULES,
+                              also_blocked=('matplotlib', 'cv2'))
+    scanned = {p.relative_to(ROOT).parts[1] for p in PORT_FILES
+               if len(p.relative_to(ROOT).parts) > 2}
+    assert {'native', 'tools'} <= scanned
+    src = (ROOT / 'jmodt_torch' / 'native' / 'src' / 'pointcloud.cpp')
+    assert '#include "' not in src.read_text()
+
+
+def test_tools_need_a_card_unless_asked(monkeypatch, tmp_path):
+    from jmodt_torch.tools import synthetic_ladder
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        synthetic_ladder.main(['--out', str(tmp_path / 'ladder')])
+    assert not (tmp_path / 'ladder').exists()
 
 
 def test_data_parallel_needs_a_card_unless_asked(monkeypatch):

@@ -4,8 +4,8 @@ parts on the same converted tree.
 The tree is a raw KITTI tracking tree of synthetic scenes
 (`data/synthetic.py::write_synthetic_kitti_tree`): a training sequence of
 5 frames (4 pairs) and the small_val sequence (0019) of 3, converted by
-each package's converter; the JAX dataset is pinned to its numpy loader
-(`use_native=False`), the port's only one.
+each package's converter; both datasets are pinned to their numpy loaders
+(`use_native=False`) where batches are held bit-equal.
 
 - `make_loader` at workers 0: every batch of two epochs bit-equal to the
   JAX `make_loader`'s, shuffled and in order.  At workers 2: each worker's
@@ -100,7 +100,8 @@ def _datasets(converted, jcfg, tcfg, split='train', seed=0):
               fixed_img_size=(64, 128), seed=seed)
     return (JaxKittiDataset(str(converted[0]), cfg=jcfg, use_native=False,
                             **kw),
-            KittiDataset(str(converted[1]), cfg=tcfg, **kw))
+            KittiDataset(str(converted[1]), cfg=tcfg, use_native=False,
+                         **kw))
 
 
 # ------------------------------------------------------------ the loader
