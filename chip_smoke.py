@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port (jmodt_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --data-parallel    # phases 1 and 15 alone
+    python3 chip_smoke.py --data-parallel    # phases 1, 15 and 17 alone
     python3 chip_smoke.py --remainder        # phases 1 and 16 alone
+    python3 chip_smoke.py --points-parallel  # phases 1 and 17 alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -226,6 +227,28 @@ Phases, in order; any failure exits non-zero:
             card's JSON equal to `--device cpu`'s (IoU floats within 1e-6).
             (e) `synthetic_ladder` at its smallest (3 frames, 2 sequences,
             an epoch a stage) prints its JSON line; its seconds printed.
+17. points  the (data, points) mesh of `--points_parallel`: ranks spawned
+            on cuda:0 over gloo at (dp, sp) = (1, 2) and (2, 2) (with 4
+            cards also (1, 4), and (2, 2) and (1, 4) a rank a card over
+            NCCL), one spawn a layout, in the default environment, against
+            phase 15's one process: 3 bfloat16 finetune steps of 4 pairs
+            (REID.FG_THRESH 0): launches a rank-step equal to the one
+            process's (K1 2 / K2 4 / K3 4 / K4 6 / K5 0 / K6 4), ms a
+            rank-step, collectives and ms in them, peak memory a rank
+            beside one process's and phase 15's data-only ranks'
+            (measured here when phase 15 does not run); rank 0's step 1
+            kernel inputs (K1, K2, K3, K4, K6 at the rank's shapes) held
+            against their plain versions with phase 2's tolerances; then
+            float32 (TF32 off) one finetune step of 4 pairs and one
+            full-losses step of 2, held to the one-ulp control (ranks
+            bit-equal, BatchNorm statistics within 1e-5, loss terms,
+            gradients, flipped signs and parameters within the control's
+            gaps), the NCCL ranks to their gloo runs the same way; then
+            the float32 finetune at (1, 2) and (2, 2) once more with
+            CUBLAS_WORKSPACE_CONFIG=:0:0 for the ranks and for one process
+            of its own (`layers.split_invariant`), held to phase 15's
+            finetune gates (within 1e-5).
+            The phase prints its seconds.
 
 Prints a {"kernels": [...]} line (launches from phase 6; per path from
 phases 3, 6, 8, 13, 16 and per training step from 11, 12, 14 and 15;
@@ -241,6 +264,7 @@ one card; without one it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2079,16 +2103,20 @@ def flip_cap(gaps, ulp, finetune):
             for k, n in gaps['sizes'].items()}
 
 
-def print_compare(what, backend, pairs, gaps, ulp, launches, coll):
-    """One phase 15 comparison's line, printed before its gates."""
-    bound = ('within 1e-5' if what == 'finetune' else
+def print_compare(what, backend, pairs, gaps, ulp, launches, coll,
+                  tag='15 data parallel', ranks=f'{DP_RANKS} ranks',
+                  exact=None, reference='one process'):
+    """One phase 15 (or 17) comparison's line, printed before its
+    gates."""
+    exact = what == 'finetune' if exact is None else exact
+    bound = ('within 1e-5' if exact else
              'the RPN\'s within 1e-5, all within the one-ulp gap')
-    pbound = ('1e-5' if what == 'finetune' else
+    pbound = ('1e-5' if exact else
               f'{DP_ULP_PARAMS:g}x the one-ulp gap')
     flips = sorted(((n, k) for k, n in gaps['flips'].items() if n),
                    reverse=True)
-    print(f'[15 data parallel] float32 (TF32 off) {what}, {pairs} pairs,'
-          f' {DP_RANKS} ranks over {backend} vs one process (in '
+    print(f'[{tag}] float32 (TF32 off) {what}, {pairs} pairs,'
+          f' {ranks} over {backend} vs {reference} (in '
           'brackets: one process vs itself on the points moved by one '
           f'ulp): loss terms ({bound}) err {gaps["terms"]:.3g} '
           f'({ulp["terms"]:.3g}), parameters (within {pbound}) '
@@ -2103,11 +2131,13 @@ def print_compare(what, backend, pairs, gaps, ulp, launches, coll):
           f'({ulp["stats"]:.3g}), gradients (within the one-ulp gap) '
           f'{gaps["grads"]:.3g} ({ulp["grads"]:.3g}; worst '
           f'{gaps["worst_grads"]}) of their scale; ranks bit-equal; '
-          f'launches a rank {launches} equal to one process\'s; {coll} '
+          f'launches a rank {launches} equal to {reference}\'s; {coll} '
           'collectives a rank', flush=True)
 
 
-def dp_compare(one, ulp, ranks, finetune, what, backend, pairs):
+def dp_compare(one, ulp, ranks, finetune, what, backend, pairs,
+               phase='15 data parallel', layout=None, exact=None,
+               reference='one process'):
     """Phase 15's gates for the ranks against the one-process run `one`:
     the kernels not rebuilt, every step's launches equal, the ranks'
     states bit-equal, BatchNorm statistics within DP_TOL of scale, the
@@ -2119,9 +2149,12 @@ def dp_compare(one, ulp, ranks, finetune, what, backend, pairs):
     discontinuous at float32's resolution there (its proposals tie within
     rounding, so the RoIs sampled from them and the RCNN after them move
     with any rounding), so every loss term is held to the one-ulp run's
-    gap and the parameters to DP_ULP_PARAMS times it.  Returns (the ranks'
-    gaps, the one-ulp gaps)."""
-    tag = f'{what} over {backend}'
+    gap and the parameters to DP_ULP_PARAMS times it.  `exact` False holds
+    a finetune to those full-loss gates too.  Returns (the ranks' gaps,
+    the one-ulp gaps)."""
+    exact = finetune if exact is None else exact
+    tag = f'{what} over {backend}' + ('' if layout is None else
+                                       f' at {layout}')
     for r in ranks:
         check(r['build_s'] == 0.0, f'{tag}: rank {r["rank"]} built the '
               f'kernels ({r["build_s"]:.1f} s)')
@@ -2135,22 +2168,24 @@ def dp_compare(one, ulp, ranks, finetune, what, backend, pairs):
     gaps, self_gaps = dp_gaps(one, ranks[0]), dp_gaps(one, ulp)
     print_compare(what, backend, pairs, gaps, self_gaps,
                   one['steps'][0]['launches'],
-                  ranks[0]['steps'][0]['collectives'])
+                  ranks[0]['steps'][0]['collectives'], phase,
+                  f'{len(ranks)} ranks' + ('' if layout is None else
+                                           f' {layout}'), exact, reference)
     check(gaps['stats'] <= DP_TOL, f'{tag}: BatchNorm statistics err '
           f'{gaps["stats"]} ({gaps["worst_stats"]})')
     check(gaps['grads'] <= self_gaps['grads'], f'{tag}: gradients err '
           f'{gaps["grads"]} ({gaps["worst_grads"]}), one ulp '
           f'{self_gaps["grads"]}')
-    cap = flip_cap(gaps, self_gaps, finetune)
+    cap = flip_cap(gaps, self_gaps, exact)
     over = {k: (n, cap[k]) for k, n in gaps['flips'].items() if n > cap[k]}
     check(not over, f'{tag}: flipped-sign gradient elements over their cap '
           f'(flipped, cap) {over}')
     want, got = one['steps'][-1]['tb'], ranks[0]['steps'][-1]['tb']
     for k, v in want.items():
-        if finetune or k.startswith('rpn_'):
+        if exact or k.startswith('rpn_'):
             e = abs(got[k] - v) / max(1.0, abs(v))
             check(e <= DP_TOL, f'{tag}: {k} {got[k]}, one process {v}')
-    if finetune:
+    if exact:
         check(gaps['params'] <= DP_TOL, f'{tag}: parameters err '
               f'{gaps["params"]} ({gaps["worst_params"]})')
     else:
@@ -2177,7 +2212,9 @@ def dp_timing(runs):
 
 def data_parallel_steps(tmp):
     """Phase 15, first half: DP_RANKS ranks on cuda:0 over gloo (and one a
-    card over NCCL when there are several) against one process."""
+    card over NCCL when there are several) against one process.  Its
+    one-process runs are also returned ('refs') as phase 17's references
+    under the default environment."""
     import os
     from jmodt_torch.train import data_parallel
     res = {}
@@ -2206,6 +2243,7 @@ def data_parallel_steps(tmp):
                       f'non-finite terms {b["tb"]}')
         check_counts(ranks[0]['steps'][-1]['launches'], PER_STEP_FINETUNE,
                      'data-parallel finetune rank 0')
+        res['refs'] = {'bf16': one}
         res['timing'] = dp_timing([one] + ranks)
         res['peak_gib'] = [one['peak_gib']] + [r['peak_gib'] for r in ranks]
         res['launches'] = ranks[0]['steps'][-1]['launches']
@@ -2229,6 +2267,7 @@ def data_parallel_steps(tmp):
                 for b in batch]
             ulp = data_parallel.run_steps('cuda', cfg32, state, moved,
                                           f'{tmp}/ulp_{finetune}')
+            res['refs'][what] = (one, ulp)
             for backend, device in backends:
                 ranks = data_parallel.on_ranks(
                     DP_RANKS, cfg32, state, batch,
@@ -2794,6 +2833,266 @@ def remainder_phase(frames) -> dict:
     return dict(detection=det_counts, joint=joint_counts)
 
 
+# ----------------------------------------------------------------- phase 17
+
+# (dp, sp) layouts of the points-parallel ranks on cuda:0 over gloo, and a
+# rank a card over NCCL where there are 4 cards (with (1, 4) over gloo on
+# cuda:0 beside it)
+PP_LAYOUTS = ((1, 2), (2, 2))
+PP_CARD_LAYOUTS = ((2, 2), (1, 4))
+PP_CARDS = 4
+# In the default environment cuBLAS picks a product's kernel, and how it
+# splits K, by the product's shape, so a slice's rows round otherwise than
+# the whole's (measured on the H100 for the RPN's fusion layers at 1/2 and
+# 1/4 of their rows, `python -m jmodt_torch.tools.split_diagnosis`), which
+# the random-weight step, its proposals tied within rounding, turns into
+# other RoIs: there a points split is held to the one-ulp control.  Under
+# this setting (`layers.split_invariant`) the split rounds as one process
+# (at sp = 2; at sp = 4 cuDNN also takes another convolution algorithm
+# on 160-column slices) and is held to phase 15's finetune gates.
+SPLIT_INVARIANT_ENV = {'CUBLAS_WORKSPACE_CONFIG': ':0:0'}
+
+
+@contextlib.contextmanager
+def environ(values):
+    """os.environ with `values` set inside (the processes spawned there
+    inherit them); as it was after."""
+    import os
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def on_device(x):
+    """A recorded kernel call's arguments on the card."""
+    if isinstance(x, torch.Tensor):
+        return x.cuda()
+    if isinstance(x, (list, tuple)):
+        return type(x)(on_device(v) for v in x)
+    return x
+
+
+def pp_runs():
+    """Phase 17's spawns: (name, dp, sp, backend, device)."""
+    runs = [(f'{dp}x{sp}', dp, sp, 'gloo', 'cuda:0') for dp, sp in PP_LAYOUTS]
+    if torch.cuda.device_count() >= PP_CARDS:
+        runs.append(('1x4', 1, 4, 'gloo', 'cuda:0'))
+        runs += [(f'{dp}x{sp}', dp, sp, 'nccl', None)
+                 for dp, sp in PP_CARD_LAYOUTS]
+    return runs
+
+
+def one_process_refs(tmp, bf16, f32):
+    """Phase 15's one-process runs, for phase 17 when it runs alone: the
+    bfloat16 finetune and, for each float32 step, the step and its one-ulp
+    control, in this process."""
+    from jmodt_torch.train import data_parallel
+    torch.cuda.reset_peak_memory_stats()
+    refs = {'bf16': data_parallel.run_steps('cuda', bf16['cfg'],
+                                            bf16['state'], bf16['batches'],
+                                            f'{tmp}/one_bf16')}
+    for f in f32:
+        refs[f['what']] = tuple(
+            data_parallel.run_steps('cuda', f['cfg'], f['state'], b,
+                                    f'{tmp}/{name}_{f["finetune"]}')
+            for name, b in (('one', f['batch']), ('ulp', f['moved'])))
+    return refs
+
+
+def split_invariant_one(tmp, f):
+    """The float32 step `f` and its one-ulp control by one process of its
+    own under SPLIT_INVARIANT_ENV (and TF32 off)."""
+    import os
+    jobs = [dict(cfg=f['cfg'], state=f['state'], batches=b,
+                 out_dir=f'{tmp}/inv_{name}') for name, b in
+            (('one', f['batch']), ('ulp', f['moved']))]
+    path = f'{tmp}/inv_jobs.pt'
+    torch.save(jobs, path)
+    code = ('import sys, torch; from jmodt_torch.train import data_parallel '
+            'as d; d.run_jobs("cuda", torch.load(sys.argv[1], '
+            'weights_only=False))')
+    subprocess.run([sys.executable, '-c', code, path], check=True,
+                   env=dict(os.environ, NVIDIA_TF32_OVERRIDE='0',
+                            **SPLIT_INVARIANT_ENV))
+    return [torch.load(f'{j["out_dir"]}/rank0.pt', weights_only=True)
+            for j in jobs]
+
+
+def points_parallel_steps(tmp, refs=None, data_peak=None):
+    """Phase 17: the (data, points) mesh's ranks in one spawn a layout,
+    in the default environment: the bfloat16 finetune (TRAIN_PAIRS pairs,
+    DP_TIMING_STEPS steps; rank 0 records its step 1's kernel inputs) and
+    in float32 a finetune step of TRAIN_PAIRS pairs and a full-losses step
+    of DP_FULL_PAIRS, each against one process with phase 15's full-loss
+    gates (the one-ulp control); then the float32 finetune in a spawn of
+    its own under SPLIT_INVARIANT_ENV against one process under it, with
+    phase 15's finetune gates.  `refs`: phase 15's one-process runs, or
+    None to run them here; `data_peak`: phase 15's peak memory of its
+    data-only ranks, or None to measure it here (2 ranks, (2, 1))."""
+    from jmodt_torch.train import data_parallel
+    res = {'timing': {}, 'peak_gib': {}, 'launches': {}, 'loss': {},
+           'gaps': {}, 'seconds': {}, 'peak_f32': {}}
+    # the ranks compute float32 as this process does since phase 4: no TF32
+    with environ({'NVIDIA_TF32_OVERRIDE': '0'}):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        cfg = train_cfg(True, 'bfloat16', reid_fg_thresh=0.0)
+        bf16 = dict(cfg=cfg, state=train_state(cfg), batches=pair_batches(
+            cfg, TRAIN_PAIRS, range(300, 300 + DP_TIMING_STEPS)))
+        f32 = []
+        for finetune, pairs in ((True, TRAIN_PAIRS), (False, DP_FULL_PAIRS)):
+            cfg32 = train_cfg(finetune, 'float32', 0.0 if finetune else None)
+            batch = pair_batches(cfg32, pairs, (310,))
+            f32.append(dict(
+                what='finetune' if finetune else 'full losses',
+                finetune=finetune, pairs=pairs, cfg=cfg32,
+                state=train_state(cfg32), batch=batch,
+                moved=[dict(b, pts_input=np.nextafter(
+                    b['pts_input'], np.float32(np.inf)).astype(np.float32))
+                    for b in batch]))
+        if refs is None:
+            refs = one_process_refs(tmp, bf16, f32)
+        one = refs['bf16']
+        for f in f32:
+            f['one'], f['ulp'] = refs[f['what']]
+        check_counts(one['steps'][-1]['launches'], PER_STEP_FINETUNE,
+                     'points phase, one process')
+        res['timing']['one'] = dp_timing([one])[0]
+        res['peak_gib']['one'] = one['peak_gib']
+        res['seconds']['one process'] = time.perf_counter() - t0
+        runs = pp_runs()
+        gloo = {}
+        if data_peak is None:
+            runs.insert(0, ('2x1', 2, 1, 'gloo', 'cuda:0'))
+        for name, dp, sp, backend, device in runs:
+            key = f'{name} {backend}'
+            jobs = [dict(cfg=bf16['cfg'], state=bf16['state'],
+                         batches=bf16['batches'], record=sp > 1,
+                         out_dir=f'{tmp}/{name}_{backend}_bf16')]
+            if sp > 1:
+                jobs += [dict(cfg=f['cfg'], state=f['state'],
+                              batches=f['batch'],
+                              out_dir=f'{tmp}/{name}_{backend}_{f["finetune"]}')
+                         for f in f32]
+            # ranks on cuda:0 share it with this process: hand them what
+            # its allocator keeps cached from the one-process runs and the
+            # kernel checks (4 ranks at (1, 4) ran out of memory otherwise)
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            bf, *f32_ranks = data_parallel.on_ranks_each(
+                dp * sp, jobs, device=device, points=sp)
+            res['seconds'][key] = time.perf_counter() - t0
+            for r in bf:
+                check(r['layout'] == (dp, sp), f'{key}: rank {r["rank"]} '
+                      f'laid out as {r["layout"]}')
+                for i, (a, b) in enumerate(zip(one['steps'], r['steps'])):
+                    check(a['launches'] == b['launches'], f'{key} bf16 '
+                          f'finetune: rank {r["rank"]} step {i + 1} '
+                          f'launched {b["launches"]}, one process '
+                          f'{a["launches"]}')
+                    check(all(np.isfinite(v) for v in b['tb'].values()),
+                          f'{key} bf16 finetune: rank {r["rank"]} step '
+                          f'{i + 1} non-finite terms {b["tb"]}')
+            res['timing'][key] = dp_timing(bf)
+            res['peak_gib'][key] = [r['peak_gib'] for r in bf]
+            if sp == 1:
+                continue
+            res['launches'][key] = bf[0]['steps'][-1]['launches']
+            res['loss'][key] = bf[0]['steps'][-1]['tb']['loss']
+            print(f'[17 points parallel] {key}: rank 0\'s step 1 kernel '
+                  'calls vs plain versions:', flush=True)
+            calls = torch.load(f'{tmp}/{name}_{backend}_bf16/'
+                               'kernel_inputs.pt', weights_only=True)
+            check_kernels(({k: [on_device(a) for a in v]
+                            for k, v in calls.items()}, []),
+                          {k: v for k, v in PER_STEP_FINETUNE.items() if v},
+                          timed=False)
+            del calls
+            layout = f'(dp, sp) = ({dp}, {sp})'
+            for f, ranks in zip(f32, f32_ranks):
+                res['peak_f32'].setdefault(f['what'], {
+                    'one': f['one']['peak_gib']})[key] = [
+                        r['peak_gib'] for r in ranks]
+                gloo[(name, backend, f['what'])] = ranks[0]
+                ref, against = f['one'], 'one process'
+                if backend == 'nccl':
+                    ref = gloo[(name, 'gloo', f['what'])]
+                    against = 'the same layout over gloo'
+                res['gaps'][(key, f['what'])] = dp_compare(
+                    ref, f['ulp'], ranks, f['finetune'], f['what'],
+                    backend, f['pairs'], '17 points parallel', layout,
+                    False, against)
+        if data_peak is not None:
+            res['peak_gib']['2x1 gloo'] = data_peak
+        # split invariant: the float32 finetune under SPLIT_INVARIANT_ENV
+        f = f32[0]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        inv_one, inv_ulp = split_invariant_one(tmp, f)
+        check(inv_one['steps'][0]['tb']['loss'] > 0, 'finetune: loss 0')
+        for dp, sp in PP_LAYOUTS:
+            with environ(SPLIT_INVARIANT_ENV):
+                ranks = data_parallel.on_ranks(
+                    dp * sp, f['cfg'], f['state'], f['batch'],
+                    f'{tmp}/inv_{dp}x{sp}', device='cuda:0', points=sp)
+            key = f'{dp}x{sp} gloo, CUBLAS_WORKSPACE_CONFIG=:0:0'
+            res['gaps'][(key, f['what'])] = dp_compare(
+                inv_one, inv_ulp, ranks, True, f['what'], 'gloo',
+                f['pairs'], '17 points parallel',
+                f'(dp, sp) = ({dp}, {sp}), CUBLAS_WORKSPACE_CONFIG=:0:0',
+                True, 'one process under it')
+        res['seconds']['split invariant'] = time.perf_counter() - t0
+    return res
+
+
+def points_parallel_phase(data=None) -> dict:
+    """Phase 17, printed; returns its results.  `data`: phase 15's results
+    (its one-process runs and its data-only ranks' peak memory), or None
+    when it did not run."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pp = points_parallel_steps(
+            tmp, None if data is None else data['refs'],
+            None if data is None else data['peak_gib'][1:])
+    one_ms = pp['timing']['one'][0]
+    peaks = pp['peak_gib']
+    print(f'[17 points parallel] ranks on a (data, points) mesh vs one '
+          f'process, Config() finetune with REID.FG_THRESH 0 (bfloat16), '
+          f'{TRAIN_PAIRS} pairs a step, {DP_TIMING_STEPS} steps: ms a '
+          f'rank-step (steps 2-{DP_TIMING_STEPS}, synchronized wall) one '
+          f'process {one_ms:.2f}; '
+          + '; '.join(f'{key}: ' + ', '.join(f'{m:.2f}' for m, _, _ in t)
+                      + ' ms, collectives a rank-step '
+                      + ', '.join(f'{c} ({cm:.2f} ms in them)'
+                                  for _, c, cm in t)
+                      for key, t in pp['timing'].items() if key != 'one')
+          + f'; peak memory GiB a rank: one process {peaks["one"]:.2f}, '
+          + ', '.join(f'{key} ' + '/'.join(f'{g:.2f}' for g in v)
+                      for key, v in peaks.items() if key != 'one')
+          + '; launches a rank-step '
+          + '; '.join(f'{key} {v}' for key, v in pp['launches'].items())
+          + ', each step equal to the one process\'s; loss step '
+          f'{DP_TIMING_STEPS} rank 0 '
+          + ', '.join(f'{key} {v:.6g}' for key, v in pp['loss'].items())
+          + '; float32 peak memory GiB a rank: '
+          + '; '.join(f'{what} one process {v["one"]:.2f}, ' + ', '.join(
+              f'{key} ' + '/'.join(f'{g:.2f}' for g in p)
+              for key, p in v.items() if key != 'one')
+              for what, v in pp['peak_f32'].items())
+          + '; seconds ' + ', '.join(f'{key} {v:.1f}' for key, v in
+                                     pp['seconds'].items())
+          + f' (phase {time.perf_counter() - t0:.1f} s)', flush=True)
+    return pp
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2813,8 +3112,12 @@ def main(argv) -> int:
 
     cfg = dataclasses.replace(Config(), DTYPE='bfloat16')
     frames = [make_eval_frame(seed, cfg, raw_u8=True) for seed in range(4)]
-    if argv == ['--data-parallel']:     # phase 15 alone: a multi-card call
-        data_parallel_phase(frames)
+    if argv == ['--data-parallel']:     # phases 15, 17: a multi-card call
+        points_parallel_phase(data_parallel_phase(frames))
+        print_device()
+        return 0
+    if argv == ['--points-parallel']:   # phase 17 alone
+        points_parallel_phase()
         print_device()
         return 0
     if argv == ['--remainder']:         # phase 16 alone
@@ -3007,6 +3310,7 @@ def main(argv) -> int:
 
     dp = data_parallel_phase(frames)
     rem = remainder_phase(frames)
+    pp = points_parallel_phase(dp)
 
     rows = []
     for k in KERNELS:
@@ -3026,6 +3330,8 @@ def main(argv) -> int:
                                                           0),
                 'train_finetune_rank_step': dp['launches'].get(
                     k['counter'], 0),
+                'train_finetune_points_rank_step': pp['launches'][
+                    '1x2 gloo'].get(k['counter'], 0),
                 'detection_fused_pyramid': rem['detection'].get(
                     k['counter'], 0),
                 'joint_fused_pyramid': rem['joint'].get(k['counter'], 0)},

@@ -13,6 +13,7 @@ from jmodt_torch.models.image_backbone import (BasicBlock, ImagePyramidFusion,
                                                feature_gather)
 from jmodt_torch.models.layers import (PointwiseLayer, compute_dtype, dense)
 from jmodt_torch.models.pointnet2 import FPModule, SAModuleMSG
+from jmodt_torch.parallel import mesh
 
 
 def backbone_out_channels(cfg: Config) -> int:
@@ -75,7 +76,14 @@ class PointNet2MSG(nn.Module):
     inside a training step (`train_step`, which `PointRCNN`'s train forward
     passes as the JAX package passes `under_grad=train`: under RPN.FIXED the
     port runs the RPN in eval mode under no_grad, where the JAX package
-    differentiates it and takes the materialized map)."""
+    differentiates it and takes the materialized map).
+
+    In the points region of a (data, points) mesh (`parallel.mesh`) the
+    cloud, xy and the image are this rank's slices: each SA level samples
+    the whole cloud and keeps this rank's centres, each FP level
+    interpolates this rank's points from the whole coarser level, the
+    route gate reads the whole cloud's size, and the pyramid takes the
+    materialized map (the fused gather's corners fall in any slice)."""
 
     def __init__(self, cfg: Config, input_channels: int = 0,
                  use_xyz: bool = True, device=None):
@@ -123,15 +131,19 @@ class PointNet2MSG(nn.Module):
         l_xyz, l_features, l_xy = [xyz], [features], [xy]
         img_levels = []
         img = image
+        part = mesh.points_split()
+        sp = 1 if part is None else part[1]
         for k in range(n_sa):
             # fused and whole-level eval paths where the cloud is small
             # (levels 1-3 at the default widths)
-            small = self.use_xyz and l_xyz[k].shape[1] <= 8192
+            small = self.use_xyz and l_xyz[k].shape[1] * sp <= 8192
             li_xyz, li_feat, li_idx = getattr(self, f'sa_{k}')(
                 l_xyz[k], l_features[k], cfg.RPN.FUSED_SA and small,
                 cfg.RPN.MEGA_SA and small)
             if use_fusion:
-                li_xy = torch.gather(l_xy[k], 1, li_idx.long()[:, :, None]
+                li_xy = torch.gather(mesh.gather_points(l_xy[k]) if part
+                                     else l_xy[k], 1,
+                                     li_idx.long()[:, :, None]
                                      .expand(-1, -1, 2))
                 img = getattr(self, f'img_block_{k}')(img)
                 img_pts = feature_gather(img, li_xy)
@@ -152,7 +164,7 @@ class PointNet2MSG(nn.Module):
                 xy.requires_grad or any(t.requires_grad for t in img_levels)
                 or any(p.requires_grad for p in pyramid.parameters()))
             if (cfg.LI_FUSION.FUSED_PYRAMID and not pyramid.training
-                    and not under_grad and not train_step):
+                    and not under_grad and not train_step and part is None):
                 img_pts = pyramid(img_levels, xy)
             else:
                 img_pts = feature_gather(pyramid(img_levels), xy)

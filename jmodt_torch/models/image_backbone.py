@@ -5,6 +5,12 @@ Public tensors are NHWC (B, H, W, C) as in the JAX package; each
 convolution views its input as NCHW in channels-last memory (a permute, no
 copy) and returns NHWC the same way.  Weights are in PyTorch's layouts:
 Conv2d OIHW, ConvTranspose2d (Cin, Cout, k, k).
+
+In the points region of a (data, points) mesh (`parallel.mesh`) a rank
+holds the contiguous W / sp columns of every map: `BasicBlock` takes its
+neighbours' edge columns (`mesh.halo`), the deconvs and 1x1 convs are
+local to the slice, and `feature_gather` samples each point of the group
+on the rank that holds its bilinear cell.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from torch import nn
 
 from jmodt_torch.models.layers import BatchNorm
 from jmodt_torch.ops.depth_to_space import depth_to_space
+from jmodt_torch.parallel import mesh
 
 # ImagePyramidFusion forwards by route: 'fused' (the eval gather at the
 # points, FUSED_PYRAMID) or 'materialized' (the full-resolution map)
@@ -32,15 +39,22 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype
-          ) -> torch.Tensor:
+def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype,
+          padding=None) -> torch.Tensor:
     bias = None if conv.bias is None else conv.bias.to(dtype)
     return _nhwc(F.conv2d(_nchw(x.to(dtype)), conv.weight.to(dtype), bias,
-                          stride=conv.stride, padding=conv.padding))
+                          stride=conv.stride,
+                          padding=conv.padding if padding is None
+                          else padding))
 
 
 class BasicBlock(nn.Module):
-    """conv3x3(s=1) -> BN -> ReLU -> conv3x3(s=2), no bias; halves H, W."""
+    """conv3x3(s=1) -> BN -> ReLU -> conv3x3(s=2), no bias; halves H, W.
+
+    On a width slice (the points region): Conv_0 takes a column of each
+    neighbour, Conv_1 (whose slice starts at an even column, so its
+    outputs are the slice's own) a column of the left one; the zero
+    padding of the width stays at the image's true border."""
 
     def __init__(self, cin: int, features: int,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -53,8 +67,17 @@ class BasicBlock(nn.Module):
                                 bias=False, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.BatchNorm_0(_conv(self.Conv_0, x, self.dtype)))
-        return _conv(self.Conv_1, x, self.dtype)
+        if mesh.points_split() is None:
+            x = torch.relu(self.BatchNorm_0(_conv(self.Conv_0, x,
+                                                  self.dtype)))
+            return _conv(self.Conv_1, x, self.dtype)
+        if x.shape[2] % 2:
+            raise ValueError(f'an image slice {x.shape[2]} columns wide '
+                             'does not halve: the width must split into '
+                             'even slices at every level')
+        x = _conv(self.Conv_0, mesh.halo(x, 2, 1, 1), self.dtype, (1, 0))
+        x = torch.relu(self.BatchNorm_0(x))
+        return _conv(self.Conv_1, mesh.halo(x, 2, 1, 0), self.dtype, (1, 0))
 
 
 def _bilinear_corners(h: int, w: int, xy: torch.Tensor):
@@ -87,11 +110,73 @@ def feature_gather(feature_map: torch.Tensor, xy: torch.Tensor
                    ) -> torch.Tensor:
     """Bilinear sampling of (B, H, W, C) features at xy (B, N, 2) in
     [-1, 1]: grid_sample with align_corners=True and zero padding, in
-    float32, returned in the map's dtype as (B, N, C)."""
+    float32, returned in the map's dtype as (B, N, C).
+
+    In the points region the map is this rank's W / sp columns and xy its
+    slice of the points: each point is sampled by the rank that holds its
+    bilinear cell, with grid_sample on the whole width's coordinates, so
+    it gets the one-process value bit for bit (`_owned_gather`)."""
+    part = mesh.points_split()
+    if part is not None:
+        return _owned_gather(feature_map, xy, part)
+    return _grid_sample(feature_map, xy)
+
+
+def _grid_sample(feature_map: torch.Tensor, xy: torch.Tensor
+                 ) -> torch.Tensor:
     out = F.grid_sample(_nchw(feature_map).float(), xy.float()[:, None],
                         mode='bilinear', padding_mode='zeros',
                         align_corners=True)                   # (B, C, 1, N)
     return out[:, :, 0, :].transpose(1, 2).to(feature_map.dtype)
+
+
+def _owned_gather(feature_map: torch.Tensor, xy: torch.Tensor, part
+                  ) -> torch.Tensor:
+    """`feature_gather` on a width slice (`part` = (points rank, sp)): the
+    rank widens its slice by a column of its left neighbour and two of its
+    right one (`mesh.halo`), samples the points of its group whose cells
+    it owns (`owned_sample`), and the reduce-scatter hands each point's
+    value to the rank that holds the point."""
+    r, sp = part
+    if feature_map.shape[2] < 2:
+        raise ValueError(f'an image slice {feature_map.shape[2]} column '
+                         'wide: the gather needs slices of 2 columns or '
+                         'more')
+    band = mesh.halo(feature_map, 2, 1, 2)
+    return mesh.scatter_points(owned_sample(band, mesh.gather_points(xy),
+                                            r, sp))
+
+
+def owned_sample(band: torch.Tensor, xy: torch.Tensor, r: int, sp: int
+                 ) -> torch.Tensor:
+    """A points rank's share of a split gather: (B, N, C) in the band's
+    dtype, the one-process value of every point of xy (the whole group's
+    points, in [-1, 1] of the whole width) whose bilinear cell is rank r's
+    of sp, zeros for the others.  `band` is the rank's W / sp columns
+    widened by one column on the left and two on the right.
+
+    A point belongs to the rank whose columns hold the left corners of its
+    cell (floor of its column, clamped to the image).  The band's extra
+    columns hold the cell's corners even where the library's rounding of
+    the column differs from this floor by one.  The band is copied to its
+    place in a float32 zero map of the whole width and sampled there with
+    grid_sample, so that a point's coordinate rounds as in one process
+    (cuDNN's sampler scales it by the width): the owned points get the
+    one-process values bit for bit.  The whole-width map is the price:
+    each rank holds one (and samples every point of the group), as one
+    process holds its map's float32 copy."""
+    b, h, wb, c = band.shape
+    w = wb - 3
+    width = w * sp
+    u = (xy[..., 0].float() + 1.0) * 0.5 * (width - 1)
+    mine = torch.clamp(torch.floor(u), 0, width - 1).long() // w == r
+    first = r * w - 1                     # the band's first column
+    lo, hi = max(first, 0), min(first + wb, width)
+    whole = band.new_zeros((b, h, width, c), dtype=torch.float32)
+    whole[:, :, lo:hi] = band[:, :, lo - first:hi - first]
+    out = _grid_sample(whole, xy)
+    return torch.where(mine[..., None], out,
+                       torch.zeros_like(out)).to(band.dtype)
 
 
 class NonOverlapDeconv(nn.Module):

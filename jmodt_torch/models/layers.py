@@ -17,6 +17,7 @@ heads emit float32.
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -34,11 +35,31 @@ def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.DTYPE == 'bfloat16' else torch.float32
 
 
+def split_invariant() -> bool:
+    """Whether the process runs with CUBLAS_WORKSPACE_CONFIG=:0:0, the
+    setting under which a split of the batch or of its points over ranks
+    rounds as one process on the card: cuBLAS then does not split a
+    product's K by its shape, and `dense` computes a one-output layer in a
+    way that does not depend on the row count either."""
+    return os.environ.get('CUBLAS_WORKSPACE_CONFIG') == ':0:0'
+
+
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype
           ) -> torch.Tensor:
-    """`layer` applied in `dtype` (params cast, kept float32)."""
+    """`layer` applied in `dtype` (params cast, kept float32).  Under
+    `split_invariant()` a layer of one output (an attention logit, a class
+    score) is the product with the weight row summed over the last dim in
+    float32, cast to `dtype`: cuBLAS's one-column product rounds a row by
+    how many rows it is given, even with its workspace off (measured on
+    the H100 at the fusion layers' sizes, `tools/split_diagnosis.py`), so
+    a row's value would depend on how the batch or its points are split
+    over ranks; this sum does not."""
+    weight = layer.weight.to(dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    if weight.shape[0] != 1 or not split_invariant():
+        return F.linear(x.to(dtype), weight, bias)
+    y = (x.to(dtype).float() * weight[0].float()).sum(-1, keepdim=True)
+    return (y if bias is None else y + bias.float()).to(dtype)
 
 
 class BatchNorm(nn.Module):
@@ -56,7 +77,12 @@ class BatchNorm(nn.Module):
     the row count are summed over them, gradients flowing through the sum,
     and the statistics, the running averages and the backward are the
     global batch's, as flax computes them under GSPMD, up to float32
-    summation order."""
+    summation order.  In the points region (`mesh.points_split`) the rows
+    are this rank's slice of the points or of the image width, the sums go
+    over the whole world, and they are taken in float64, so that they do
+    not depend on how the points are split: float32 sums in another order
+    moved near-eps-variance channels of the RPN heads far enough to flip a
+    ReLU (tests/test_torch_points_parallel.py at (2, 2))."""
 
     def __init__(self, channels: int, device=None):
         super().__init__()
@@ -82,13 +108,19 @@ class BatchNorm(nn.Module):
             var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
         else:
             c = x.shape[-1]
+            if mesh.points_split() is None:
+                s1, s2 = torch.sum(xf, axes), torch.sum(xf * xf, axes)
+            else:
+                s1 = torch.sum(xf, axes, dtype=torch.float64)
+                s2 = torch.linalg.vector_norm(xf, 2, dim=axes,
+                                              dtype=torch.float64) ** 2
             sums = mesh.stat_sum(torch.cat([
-                torch.sum(xf, axes), torch.sum(xf * xf, axes),
-                torch.full((1,), xf.numel() // c, dtype=xf.dtype,
-                           device=x.device)]))
+                s1, s2, torch.full((1,), xf.numel() // c, dtype=s1.dtype,
+                                   device=x.device)]))
             mean = sums[:c] / sums[-1]
             var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean,
-                              min=0.0)
+                              min=0.0).to(xf.dtype)
+            mean = mean.to(xf.dtype)
         self.updates += 1
         with torch.no_grad():
             self.running_mean.copy_(BN_MOMENTUM * self.running_mean
@@ -142,12 +174,19 @@ def dropout(x: torch.Tensor, rate: float,
     scale the kept ones by 1 / (1 - rate); the draws come from
     `generator` (on x's device), or from torch's default one when it is
     None.  When the batch is split over ranks, x's leading dim is this
-    rank's rows: the mask is drawn for the global batch and cut to them."""
+    rank's rows, and in the points region (`mesh.points_split`) its
+    second dim this rank's slice of the points: the mask is drawn for the
+    global batch and all its points, and cut to them."""
     keep = 1.0 - rate
-    shape = (mesh.global_rows(x.shape[0]),) + tuple(x.shape[1:])
+    part = mesh.points_split()
+    shape = [mesh.global_rows(x.shape[0])] + list(x.shape[1:])
+    if part is not None:
+        shape[1] *= part[1]
     mask = mesh.local_rows(torch.rand(shape, generator=generator,
-                                      device=x.device)) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+                                      device=x.device))
+    if part is not None:
+        mask = mask.narrow(1, part[0] * x.shape[1], x.shape[1])
+    return torch.where(mask < keep, x / keep, torch.zeros_like(x))
 
 
 class PointwiseLayer(nn.Module):

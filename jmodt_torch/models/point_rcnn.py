@@ -24,6 +24,14 @@ The image pyramid follows the JAX route, though: a training step passes
 `train_step` down to the backbone, which then makes the full-resolution
 map even under LI_FUSION.FUSED_PYRAMID, as the JAX package's
 differentiated apply does.
+
+On a (data, points) mesh (`parallel.mesh`) the RPN is the split region:
+it runs inside `mesh.points_region()` on this rank's slice of the points
+and of the image width, and its outputs are gathered whole over the
+points group right after it.  Everything after that boundary (the RPN
+loss, the proposal layers, the RCNN and the ReID heads) is computed in
+full, alike on every rank of the group, so the gather's backward keeps
+each rank's own slice.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from jmodt_torch.models.proposal import (RoiDraws, pool_rois_for_eval,
                                          sample_roi_draws)
 from jmodt_torch.models.rcnn import RCNN
 from jmodt_torch.models.rpn import RPN
+from jmodt_torch.parallel import mesh
 
 
 class PointRCNN(nn.Module):
@@ -110,9 +119,12 @@ class PointRCNN(nn.Module):
         cfg = self.cfg
         fixed = cfg.RPN.FIXED
         assert gt_boxes3d is not None, 'mode TRAIN needs gt_boxes3d'
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not fixed):
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not fixed
+                                    ), mesh.points_region():
             out = dict(self.rpn(pts_input, img, pts_xy, generator,
                                 train_step=self.training))
+        for k in ('rpn_cls', 'rpn_reg', 'backbone_xyz', 'backbone_features'):
+            out[k] = mesh.gather_points(out[k], replicated=True)
         out['backbone_xyz'] = out['backbone_xyz'].detach()       # :73, :83
         features = out['backbone_features']
         if fixed:

@@ -16,6 +16,7 @@ from jmodt_torch.ops.grouping import (ball_query_multi, group_points_fl,
 from jmodt_torch.ops.interpolate import three_interpolate_fl, three_nn
 from jmodt_torch.ops.sa_level import sa_level_fused
 from jmodt_torch.ops.sampling import farthest_point_sample, gather_xyz
+from jmodt_torch.parallel import mesh
 
 
 def sa_route(training: bool, under_grad: bool, use_bn: bool, mega: bool,
@@ -52,6 +53,13 @@ class SAModuleMSG(nn.Module):
     the same needs.  `sa_route` decides with the module's training flag and
     whether autograd records the call: grad mode on, and a parameter or a
     float input requiring grad.
+
+    In the points region of a (data, points) mesh (`parallel.mesh`) xyz
+    and features are this rank's slice of the cloud: the level gathers the
+    whole cloud over the points group, samples it (the one-process
+    indices, the same on every rank), and keeps the contiguous npoint / sp
+    of the centres in FPS order that are this rank's, which it groups
+    against the whole cloud; idx then indexes the whole cloud.
     """
 
     def __init__(self, npoint: Optional[int], radii: Sequence[float],
@@ -78,6 +86,14 @@ class SAModuleMSG(nn.Module):
                 fused: bool = False, mega: bool = False):
         if self.npoint is None:
             return None, self._group_all(xyz, features), None
+        part = mesh.points_split()
+        if part is not None:
+            if self.npoint % part[1]:
+                raise ValueError(f'an SA level of {self.npoint} centres '
+                                 f'does not split over {part[1]} points '
+                                 'ranks')
+            xyz = mesh.gather_points(xyz)
+            features = mesh.gather_points(features)
         under_grad = torch.is_grad_enabled() and (
             xyz.requires_grad
             or (features is not None and features.requires_grad)
@@ -85,12 +101,13 @@ class SAModuleMSG(nn.Module):
         route = sa_route(self.training, under_grad, self.use_bn,
                          mega and self.use_xyz, fused and self.use_xyz)
         if route == 'mega':
-            return sa_level_fused(
+            out = sa_level_fused(
                 xyz.contiguous(),
                 None if features is None else features.float().contiguous(),
                 self.npoint, self.radii, self.nsamples,
                 [fold_pointwise_mlp(mlp) for mlp in self._mlps()])
-        idx = farthest_point_sample(xyz, self.npoint)
+            return tuple(_own_centres(t, part) for t in out)
+        idx = _own_centres(farthest_point_sample(xyz, self.npoint), part)
         new_xyz = gather_xyz(xyz, idx)
         nbrs = ball_query_multi(self.radii, self.nsamples, xyz, new_xyz)
         if route != 'plain':
@@ -120,11 +137,22 @@ class SAModuleMSG(nn.Module):
                          dim=-1)
 
 
+def _own_centres(t: torch.Tensor, part) -> torch.Tensor:
+    """This points rank's contiguous share of the centres (dim 1) of `t`;
+    all of them outside a points split (`part` None)."""
+    if part is None:
+        return t
+    r, sp = part
+    m = t.shape[1] // sp
+    return t[:, r * m:(r + 1) * m]
+
+
 class FPModule(nn.Module):
     """Feature propagation: inverse-distance-weighted 3-NN interpolation,
     skip concat, shared MLP.  forward(unknown (B, n, 3), known (B, m, 3),
     unknown_feats (B, n, C1) | None, known_feats (B, m, C2)) ->
-    (B, n, mlp[-1])."""
+    (B, n, mlp[-1]).  In the points region the queries are this rank's
+    slice of the finer level and the known set is gathered whole."""
 
     def __init__(self, cin: int, mlp: Sequence[int], use_bn: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -135,6 +163,9 @@ class FPModule(nn.Module):
 
     def forward(self, unknown, known, unknown_feats, known_feats):
         cdt = self.dtype
+        if mesh.points_split() is not None:
+            known = mesh.gather_points(known)
+            known_feats = mesh.gather_points(known_feats)
         # 3-NN distances and weights on float32 coordinates
         dist, idx = three_nn(unknown, known)
         recip = 1.0 / (dist + 1e-8)

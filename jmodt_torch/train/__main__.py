@@ -3,7 +3,7 @@
     python -m jmodt_torch.train [--data_root <KITTI root>] [--small]
         [--finetune] [--batch_size 4] [--epochs N] [--workers 4]
         [--train_with_eval] [--ckpt FILE] [--async_ckpt]
-        [--data_parallel] [--multihost]
+        [--data_parallel] [--points_parallel P] [--multihost]
         [--output_dir output] [--device cpu] [--set KEY VALUE ...]
     torchrun --nproc_per_node N -m jmodt_torch.train --data_parallel ...
     torchrun --nnodes H ... -m jmodt_torch.train --multihost ...
@@ -28,9 +28,18 @@ together take the one-process step on the whole batch
 (`parallel.mesh`): under torchrun its processes, otherwise one process per
 visible card, started here; with one card it takes the one-process step.
 `--multihost` joins the process group that torchrun describes across
-hosts.  `--batch_size` must be a multiple of the number of ranks.  Rank 0
-writes the log, the checkpoints and the scalars.  `--points_parallel` (the
-JAX package's (data, points) mesh) is not ported yet.
+hosts.  `--points_parallel P` (which implies `--data_parallel`) lays the
+ranks out as the JAX package's (data, points) mesh: groups of P adjacent
+ranks share a data shard, each holding 1/P of its points and of its image
+width (`parallel.mesh`); the number of ranks must be a multiple of P.  With
+one visible card and no torchrun it takes the one-process step, as
+`tools/train.py` does on one device.  `--batch_size` must be a multiple of
+the number of data shards.  Rank 0 writes the log, the checkpoints and the
+scalars.  The ranks take the one-process step up to float32 rounding; on a
+card they round as one process only with CUBLAS_WORKSPACE_CONFIG=:0:0 in
+the environment (`models.layers.split_invariant`: otherwise cuBLAS picks
+a product's kernel by its shape, so a slice of the rows rounds otherwise)
+and TF32 off.
 """
 
 from __future__ import annotations
@@ -133,9 +142,15 @@ def parse_args(argv=None) -> Tuple[argparse.Namespace, int]:
                         help='default: the CUDA card')
     parser.add_argument('--data_parallel', action='store_true',
                         help='split each batch over torchrun\'s processes, '
-                             'or over one process per visible card')
+                             'or over one process per visible card (on a '
+                             'card they round as one process only under '
+                             'CUBLAS_WORKSPACE_CONFIG=:0:0)')
     parser.add_argument('--points_parallel', type=int, default=1,
-                        help='the (data, points) mesh: not ported yet')
+                        help='also split the point dim (and the image '
+                             'width) over groups of this many ranks: a '
+                             '(data, points) mesh; implies --data_parallel. '
+                             'On a card the ranks round as one process only '
+                             'under CUBLAS_WORKSPACE_CONFIG=:0:0')
     parser.add_argument('--multihost', action='store_true',
                         help='join the process group torchrun describes '
                              'across hosts')
@@ -145,10 +160,10 @@ def parse_args(argv=None) -> Tuple[argparse.Namespace, int]:
                              'the line)')
     args = parser.parse_args(argv)
 
+    if args.points_parallel < 1:
+        parser.error('--points_parallel must be at least 1')
     if args.points_parallel > 1:
-        parser.error('--points_parallel (the (data, points) mesh) is not '
-                     'ported yet: it is the next slice of the port; '
-                     '--data_parallel splits the batch alone')
+        args.data_parallel = True
     torchrun = 'WORLD_SIZE' in os.environ
     if args.multihost and not torchrun:
         parser.error('--multihost joins the process group from torchrun\'s '
@@ -161,7 +176,9 @@ def parse_args(argv=None) -> Tuple[argparse.Namespace, int]:
           and torch.cuda.device_count() > 1):
         world = torch.cuda.device_count()
     try:
-        mesh.pairs_per_rank(args.batch_size, world)
+        if world > 1:
+            dp = mesh.check_layout(world, args.points_parallel)
+            mesh.pairs_per_rank(args.batch_size, dp)
     except ValueError as e:
         parser.error(str(e))
     return args, world
@@ -169,12 +186,14 @@ def parse_args(argv=None) -> Tuple[argparse.Namespace, int]:
 
 def main(argv=None) -> None:
     args, world = parse_args(argv)
+    points = args.points_parallel
     if world > 1 and 'WORLD_SIZE' not in os.environ:
         kernels.build()            # once, before the ranks load it
         mesh.spawn(cli_rank, world,
-                   args=(sys.argv[1:] if argv is None else argv,))
+                   args=(sys.argv[1:] if argv is None else argv,),
+                   points=points)
     elif world > 1:
-        device = mesh.init(device=args.device)
+        device = mesh.init(device=args.device, points=points)
         try:
             train(args, device)
         finally:
@@ -202,11 +221,21 @@ def train(args, device) -> None:
             cfg, TRAIN=dataclasses.replace(cfg.TRAIN, EPOCHS=args.epochs))
     logger.info('device %s dtype %s, %d rank(s)', device, cfg.DTYPE,
                 mesh.world_size())
+    dp, sp = mesh.layout()
+    if sp > 1:
+        logger.info('(data, points) mesh: %s over %d ranks',
+                    {'data': dp, 'points': sp}, mesh.world_size())
+    elif args.points_parallel > 1:
+        logger.info('--points_parallel %d with one rank: the one-process '
+                    'step', args.points_parallel)
     # tools/ladder_report.py parses this line
     logger.info('finetune=%s fusion=%s epochs=%d', args.finetune,
                 cfg.LI_FUSION.ENABLED, cfg.TRAIN.EPOCHS)
 
     img_hw = (64, 128) if args.small else (384, 1280)
+    mesh.check_points_shapes(sp, cfg.RPN.NUM_POINTS,
+                             cfg.RPN.SA_CONFIG.NPOINTS, img_hw[1],
+                             len(cfg.LI_FUSION.IMG_CHANNELS) - 1)
     if args.data_root:
         train_set = kitti_set(args, cfg, cfg.TRAIN.SPLIT, img_hw, logger)
         train_loader_fn = make_loader(train_set, args.batch_size,

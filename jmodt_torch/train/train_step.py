@@ -23,7 +23,12 @@ batch's pairs.  Every batch reduction of the losses is summed over the
 ranks (`losses.batch_sum`), BatchNorm's statistics too, the draws are made
 for the global batch, and the gradients are summed after the backward:
 N ranks take the step of one process on the whole batch, which is what the
-JAX package's data mesh computes.
+JAX package's data mesh computes.  On a (data, points) mesh each rank also
+holds a slice of its rows' points and image width: the RPN splits its work
+over the points group, the RPN loss reads its labels gathered whole, the
+draws and the loss sums go by data shard, and the gradients of the
+parameters after the RPN (computed alike on every rank of a points group)
+are divided by the group's size after the sum.
 """
 
 from __future__ import annotations
@@ -179,10 +184,10 @@ def compute_losses(cfg: Config, output: Mapping[str, Any],
     tb: Dict[str, torch.Tensor] = {}
     loss = torch.zeros((), device=output['rpn_cls'].device)
     if cfg.RPN.ENABLED and not cfg.RPN.FIXED:
-        rpn_loss, rpn_tb = rpn_loss_fn(cfg, output['rpn_cls'],
-                                       output['rpn_reg'],
-                                       batch['rpn_cls_label'],
-                                       batch['rpn_reg_label'])
+        rpn_loss, rpn_tb = rpn_loss_fn(
+            cfg, output['rpn_cls'], output['rpn_reg'],
+            mesh.gather_points(batch['rpn_cls_label']),
+            mesh.gather_points(batch['rpn_reg_label']))
         loss = loss + rpn_loss * cfg.TRAIN.RPN_TRAIN_WEIGHT
         tb.update(rpn_tb)
     if cfg.RCNN.ENABLED:
@@ -354,10 +359,13 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     `sample_roi_draws`).
 
     When the batch is split over ranks (`parallel.mesh`), `batch` is this
-    rank's rows; the losses are the global batch's and, after the
-    backward, the gradients are summed over the ranks, so every rank takes
-    the step one process takes on the whole batch."""
+    rank's share (`mesh.shard_batch`); the losses are the global batch's
+    and, after the backward, the gradients are summed over the ranks, so
+    every rank takes the step one process takes on the whole batch."""
     dev = resolve_device(device)
+    # computed alike on every rank of a points group: all but the RPN
+    replicated = [p for n, p in model.named_parameters()
+                  if not n.startswith('rpn.')]
 
     def train_step(batch):
         model.train()
@@ -369,7 +377,7 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
                               roi_draws)
             loss, tb = compute_losses(cfg, output, batch)
             loss.backward()
-        mesh.sum_grads(model.parameters())
+        mesh.sum_grads(model.parameters(), replicated=replicated)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         tb['grad_norm'] = (global_norm(grads) if grads
                            else torch.zeros((), device=dev))

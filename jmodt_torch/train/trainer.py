@@ -209,14 +209,17 @@ def make_loader(dataset, batch_size: int, shuffle: bool = True,
     (spawned: the trainer's process holds the card and a checkpoint
     thread), shuffling with a `torch.Generator` seeded `seed`.
 
-    Each batch is rank `part`'s pairs of the one-process batch when it is
-    split over `parts` ranks (default: this process's rank and world
-    size, `parallel.mesh`): every rank draws the same order.  At
+    Each batch is data shard `part`'s pairs of the one-process batch when
+    it is split over `parts` shards (default: this process's data rank and
+    dp, `parallel.mesh`): every rank draws the same order.  At
     `num_workers` 0 the rank loads the whole batch, so that the dataset's
     random draws are the one process's, and keeps its rows; its worker
-    processes load its pairs alone."""
-    part = mesh.rank() if part is None else part
-    parts = mesh.world_size() if parts is None else parts
+    processes load its pairs alone.  On a (data, points) mesh the rank
+    then keeps its slice of the points and of the image width
+    (`mesh.shard_points`)."""
+    dp, sp = mesh.layout()
+    part = mesh.rank() // sp if part is None else part
+    parts = dp if parts is None else parts
     if num_workers > 0:
         gen = torch.Generator().manual_seed(seed) if shuffle else None
         order = (torch.utils.data.RandomSampler(dataset, generator=gen)
@@ -228,7 +231,7 @@ def make_loader(dataset, batch_size: int, shuffle: bool = True,
             num_workers=num_workers, collate_fn=dataset.collate_batch,
             generator=gen,
             multiprocessing_context=multiprocessing.get_context('spawn'))
-        return lambda: iter(loader)
+        return lambda: (mesh.shard_points(b) for b in loader)
 
     rng = np.random.RandomState(seed)
 

@@ -426,6 +426,26 @@ MAIN_PATH_K4 = [   # (what, B, M, S, widths, grid with column split, passes)
     ('rpn_l2_1', 1, 256, 32, [128, 196, 256], (128, 1, 1), (2, 2)),
     ('rpn_l3_0', 1, 64, 16, [256, 256, 512], (16, 1, 4), (2, 4)),
     ('rpn_l3_1', 1, 64, 32, [256, 384, 512], (32, 1, 4), (3, 4)),
+    # a points rank's share, M / sp centres, on the finetune step's eval
+    # RPN: 4 pairs (B = 8) at sp = 2 and 4, and B = 4 on the (2, 2) mesh
+    ('rpn_l1_0_sp2', 8, 512, 16, [64, 64, 128], (128, 8, 1), (1, 1)),
+    ('rpn_l1_1_sp2', 8, 512, 32, [64, 96, 128], (256, 8, 1), (1, 1)),
+    ('rpn_l2_0_sp2', 8, 128, 16, [128, 196, 256], (32, 8, 1), (2, 2)),
+    ('rpn_l2_1_sp2', 8, 128, 32, [128, 196, 256], (64, 8, 1), (2, 2)),
+    ('rpn_l3_0_sp2', 8, 32, 16, [256, 256, 512], (8, 8, 2), (2, 4)),
+    ('rpn_l3_1_sp2', 8, 32, 32, [256, 384, 512], (16, 8, 1), (3, 4)),
+    ('rpn_l1_0_sp4', 8, 256, 16, [64, 64, 128], (64, 8, 1), (1, 1)),
+    ('rpn_l1_1_sp4', 8, 256, 32, [64, 96, 128], (128, 8, 1), (1, 1)),
+    ('rpn_l2_0_sp4', 8, 64, 16, [128, 196, 256], (16, 8, 1), (2, 2)),
+    ('rpn_l2_1_sp4', 8, 64, 32, [128, 196, 256], (32, 8, 1), (2, 2)),
+    ('rpn_l3_0_sp4', 8, 16, 16, [256, 256, 512], (4, 8, 4), (2, 4)),
+    ('rpn_l3_1_sp4', 8, 16, 32, [256, 384, 512], (8, 8, 2), (3, 4)),
+    ('rpn_l1_0_2x2', 4, 512, 16, [64, 64, 128], (128, 4, 1), (1, 1)),
+    ('rpn_l1_1_2x2', 4, 512, 32, [64, 96, 128], (256, 4, 1), (1, 1)),
+    ('rpn_l2_0_2x2', 4, 128, 16, [128, 196, 256], (32, 4, 1), (2, 2)),
+    ('rpn_l2_1_2x2', 4, 128, 32, [128, 196, 256], (64, 4, 1), (2, 2)),
+    ('rpn_l3_0_2x2', 4, 32, 16, [256, 256, 512], (8, 4, 4), (2, 4)),
+    ('rpn_l3_1_2x2', 4, 32, 32, [256, 384, 512], (16, 4, 2), (3, 4)),
 ]
 
 
@@ -625,6 +645,20 @@ MAIN_PATH_K3 = [   # (B, N queries, M known, lanes, queries a thread,
     (4, 4096, 1024, 16, 4, 256, 64),
     (4, 1024, 256, 32, 2, 256, 64),
     (4, 256, 64, 32, 1, 128, 64),
+    # a points rank's queries, N / sp, against the whole known level on
+    # the finetune step (4 pairs): sp = 2 at B = 8 and 4, sp = 4 at B = 8
+    (8, 8192, 4096, 4, 4, 256, 32),
+    (8, 2048, 1024, 16, 4, 256, 32),
+    (8, 512, 256, 32, 2, 256, 32),
+    (8, 128, 64, 32, 1, 128, 32),
+    (4, 8192, 4096, 8, 4, 256, 64),
+    (4, 2048, 1024, 32, 4, 256, 64),
+    (4, 512, 256, 32, 1, 256, 64),
+    (4, 128, 64, 32, 1, 64, 64),
+    (8, 4096, 4096, 8, 4, 256, 32),
+    (8, 1024, 1024, 32, 4, 256, 32),
+    (8, 256, 256, 32, 1, 256, 32),
+    (8, 64, 64, 32, 1, 64, 32),
 ]
 
 
@@ -649,6 +683,39 @@ def test_three_nn_launch_plan_limits():
         interpolate.three_nn_launch_plan(1, 16, 2)
     with pytest.raises(ValueError, match='queries'):
         interpolate.three_nn_launch_plan(1, 0, 16)
+
+
+# ------------------------------------------------ K6 (depth-to-space)
+
+@pytest.mark.parametrize('sp', [2, 4])
+@pytest.mark.parametrize('level', range(4))
+def test_k6_takes_a_points_ranks_width_slice(level, sp):
+    """On a (data, points) mesh each pyramid deconv moves a rank's width
+    slice: K6's checks take its table, (B, h0 * w0 / sp, k * k * 16)
+    bfloat16 at the default config's level, and the move of a slice's
+    table is that slice of the whole map's move (kernel == stride, so no
+    tap crosses a slice)."""
+    from jmodt_torch.ops import depth_to_space as d2s
+    from jmodt_torch.ops import kernels
+    li = torch_config.Config().LI_FUSION
+    k, r = li.DeConv_Kernels[level], li.DeConv_Reduce[level]
+    h0, w0 = 384 // 2 ** (level + 1), 1280 // 2 ** (level + 1)
+    taps = torch.zeros(2, h0 * (w0 // sp), k * k * r, dtype=torch.bfloat16)
+    d2s._check(taps, k, r, h0, w0 // sp,
+               torch.zeros(r, dtype=torch.bfloat16),
+               check=kernels.check_layout)
+    with pytest.raises(ValueError, match='expected shape'):
+        d2s._check(taps, k, r, h0, w0, None, check=kernels.check_layout)
+    g = torch.Generator().manual_seed(level)
+    h, w = 3, 2 * sp
+    table = torch.randn(2, h, w, k * k * r, generator=g)
+    whole = d2s.depth_to_space_plain(table.reshape(2, h * w, -1), k, r, h,
+                                     w).reshape(2, h * k, w * k, r)
+    for p in range(sp):
+        part = table[:, :, 2 * p:2 * p + 2].reshape(2, 2 * h, -1)
+        got = d2s.depth_to_space_plain(part, k, r, h, 2)
+        assert torch.equal(got.reshape(2, h * k, 2 * k, r),
+                           whole[:, :, 2 * k * p:2 * k * (p + 1)])
 
 
 # ------------------------------------------------ K5 (whole SA level)

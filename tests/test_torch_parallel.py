@@ -45,8 +45,9 @@ difference of function (ROADMAP §3 parity notes).
   writes the checkpoint the one-process CLI writes, and one tensorboard
   event file; the trainer's tensorboard scalars read back equal the
   step's own.
-- The CLI stops with a message on a batch that does not split, on
-  `--points_parallel 2` and on `--multihost` outside torchrun.
+- The CLI stops with a message on a batch that does not split, on a
+  world that does not divide into `--points_parallel` groups and on
+  `--multihost` outside torchrun.
 """
 
 import dataclasses
@@ -565,7 +566,8 @@ def test_cli_stops_on_flags_that_cannot_run(monkeypatch, tmp_path, capsys):
     for argv, env, match in (
             (['--batch_size', '3', '--multihost'], {'WORLD_SIZE': '2'},
              'does not split over 2 ranks'),
-            (['--points_parallel', '2'], {}, 'not ported yet'),
+            (['--points_parallel', '3', '--multihost'], {'WORLD_SIZE': '4'},
+             'world of 4 ranks does not split into points groups of 3'),
             (['--multihost'], {}, 'start the ranks with torchrun')):
         monkeypatch.delenv('WORLD_SIZE', raising=False)
         for k, v in env.items():

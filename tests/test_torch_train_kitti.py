@@ -266,9 +266,10 @@ def test_cli_trains_from_kitti_files(converted, tmp_path):
 
 
 def test_cli_rejects_parallel_flags(converted, tmp_path):
-    for flag in ('--data_parallel', '--points_parallel', '--multihost'):
+    for flag in (['--data_parallel', '2'], ['--points_parallel', '0'],
+                 ['--multihost', '2']):
         with pytest.raises(SystemExit):
-            train_main.main(['--small', '--device', 'cpu', flag, '2',
+            train_main.main(['--small', '--device', 'cpu', *flag,
                              '--output_dir', str(tmp_path)])
 
 
