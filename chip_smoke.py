@@ -4,6 +4,7 @@
     python3 chip_smoke.py --data-parallel    # phases 1, 15 and 17 alone
     python3 chip_smoke.py --remainder        # phases 1 and 16 alone
     python3 chip_smoke.py --points-parallel  # phases 1 and 17 alone
+    python3 chip_smoke.py --device-frame     # phases 1 and 18 alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -66,7 +67,7 @@ Phases, in order; any failure exits non-zero:
             the launch counts set to 0 just before; each kernel must launch
             its per-frame count on every lockstep frame (not per stream),
             packed (4, 64, 10) rows must be finite and some emitted, and
-            the tracker must read the host exactly twice a frame.  Then 2
+            the tracker must not read the host (0 a frame).  Then 2
             frames in float32 at S = 2 against two
             independent joint steps on the card: tid and emit equal, boxes
             and scores within 1e-3 of their scale.
@@ -249,10 +250,35 @@ Phases, in order; any failure exits non-zero:
             of its own (`layers.split_invariant`), held to phase 15's
             finetune gates (within 1e-5).
             The phase prints its seconds.
+18. device frame  the frame without host reads: N1 (NMS, csrc/nms.cu),
+            N2 (Jonker-Volgenant) and N3 (Kalman predict, csrc/tracker.cu),
+            the kernels of the JAX package's device loops.  Under torch's
+            sync debug mode 'error' (any synchronizing CUDA call fails the
+            phase): the joint step of the main path at S = 1 with
+            'hungarian', 'mip' and 'greedy' assignment (3 frames each from
+            the numpy upload to `packed`), the lockstep step at S = 4 (2
+            frames), a scan chunk of 3 frames and the proposal layer of a
+            finetune step (4 pairs, REID.FG_THRESH 0), each after a warm-up
+            outside it; N1 3 / N2 1 (greedy 0) / N3 1 launches a frame, N1
+            2 a step.  N1's pair IoU bit-equal to the plain IoU on the EVAL
+            and TRAIN candidates and the adversarial sets, rotated and
+            axis-aligned; every recorded N1 call's indices and masks and N2
+            call's maps equal to the plain versions, N3's means and
+            covariances bit for bit; N1 on adversarial problems (random,
+            clustered, duplicated, tied scores, all invalid, budget-capped,
+            N = 5 / 40 / 64 / 65; P = 1 and 3; thresholds 0.1 / 0.5 / 0.85;
+            rotated and axis-aligned), N2 at (S, T, D) = (1, 64, 16), (4,
+            64, 16), the MIP's (1, 80, 16) and T = D, N3 with 1-6 steps
+            across streams and signed zeros.  Prints the main path's first
+            recorded frame's N1-N3 calls with kernel, plain and bound ms,
+            the TRAIN N1 calls likewise; the joint frame's ms (wall),
+            device ms and idle share (profiled), synchronizing calls a frame
+            by call site, the synchronized detection and tracker stages,
+            and the proposal layer's share of a synchronized finetune step.
 
 Prints a {"kernels": [...]} line (launches from phase 6; per path from
 phases 3, 6, 8, 13, 16 and per training step from 11, 12, 14 and 15;
-per-call times and bounds; K1's largest placeable cluster, its cluster size at
+N1-N3 from phase 18; per-call times and bounds; K1's largest placeable cluster, its cluster size at
 each N and us a step at level 0; K2's plan, us a step and warp sweep per
 call at S = 1 and 4; K3's plan and library
 time per FP level; K5's FPS floor per level; K4's and K5's
@@ -294,12 +320,16 @@ ROTATE_BYTES = 100 << 20        # twice the H100's 50 MB L2
 
 # per-frame launches of each kernel on the detection step (phase 3) and on
 # the joint step with RPN.MEGA_SA (phase 6, the main path); the lockstep
-# step (phase 8) launches the joint step's counts per lockstep frame
+# step (phase 8) launches the joint step's counts per lockstep frame.  N1
+# (nms) runs the proposal layer's two zones and the final NMS of all the
+# frames of a batch at once; N2 (lap) and N3 (kalman_predict) the
+# tracker's assignment and predict of all its streams.
 PER_FRAME = {'fps': 4, 'fps_batched': 2, 'three_nn': 4,
-             'grouped_gather_mlp_max': 8, 'depth_to_space': 4}
+             'grouped_gather_mlp_max': 8, 'depth_to_space': 4, 'nms': 3}
 PER_FRAME_JOINT = {'fps': 1, 'fps_batched': 2, 'three_nn': 4,
                    'grouped_gather_mlp_max': 2, 'sa_level': 3,
-                   'depth_to_space': 4}
+                   'depth_to_space': 4, 'nms': 3, 'lap': 1,
+                   'kalman_predict': 1}
 KERNELS = [
     dict(name='fps', counter='fps', source='jmodt_torch/csrc/fps.cu',
          replaces='jmodt_tpu/ops/pallas/fps.py:63'),
@@ -319,27 +349,42 @@ KERNELS = [
          source='jmodt_torch/csrc/depth_to_space.cu',
          replaces='jmodt_tpu/ops/pallas/depth_to_space.py:87'),
 ]
+# the kernels of the JAX package's device loops (no Pallas counterpart):
+# `replaces` names the loop's function; phase 18 holds them to their plain
+# versions
+LOOP_KERNELS = [
+    dict(name='nms', counter='nms', source='jmodt_torch/csrc/nms.cu',
+         replaces='jmodt_tpu/ops/nms.py:38'),
+    dict(name='lap', counter='lap', source='jmodt_torch/csrc/tracker.cu',
+         replaces='jmodt_tpu/tracking/device_tracker.py:183'),
+    dict(name='kalman_predict', counter='kalman_predict',
+         source='jmodt_torch/csrc/tracker.cu',
+         replaces='jmodt_tpu/tracking/device_tracker.py:129'),
+]
 NET_TOL = 1e-3
 K4_TOL = 1e-4
 K5_TOL = 1e-4
 JOINT = dict(max_tracks=64, track_k=16, det_score_thresh=0.2,
              assign='hungarian')
 STREAMS = 4
-HOST_READS = 2          # tracker device-to-host reads a lockstep frame
+HOST_READS = 0          # tracker device-to-host reads a lockstep frame
 K2_WARPS = (1, 2, 4)    # K2's plans swept: warps a cloud
 GRAD_TOL = 1e-4
 # phase 10: kernel launches of one backbone forward under autograd
 PER_GRAD = {'fps': 4, 'fps_batched': 0, 'three_nn': 4,
-            'grouped_gather_mlp_max': 0, 'sa_level': 0, 'depth_to_space': 4}
+            'grouped_gather_mlp_max': 0, 'sa_level': 0, 'depth_to_space': 4,
+            'nms': 0, 'lap': 0, 'kalman_predict': 0}
 GRAD_IMG_HW = (96, 320)
 # phases 11-12: kernel launches of one training step.  B >= 2 clouds of at
 # most 1024 points take K2, so RPN levels 2-3 run K2 beside RCNN sa_0-1
 PER_STEP_FINETUNE = {'fps': 2, 'fps_batched': 4, 'three_nn': 4,
                      'grouped_gather_mlp_max': 6, 'sa_level': 0,
-                     'depth_to_space': 4}
+                     'depth_to_space': 4, 'nms': 2, 'lap': 0,
+                     'kalman_predict': 0}
 PER_STEP_FULL = {'fps': 2, 'fps_batched': 4, 'three_nn': 4,
                  'grouped_gather_mlp_max': 0, 'sa_level': 0,
-                 'depth_to_space': 4}
+                 'depth_to_space': 4, 'nms': 2, 'lap': 0,
+                 'kalman_predict': 0}
 K6_BACKWARD_FULL = 4
 TRAIN_PAIRS = 4
 TRAIN_STEPS = 3
@@ -519,6 +564,8 @@ def check_kernels(recorded, per_frame, timed=True):
     agg = {}
     timed_names = set(per_frame) if timed is True else set(timed or ())
     for name, per in per_frame.items():
+        if name not in calls:       # N1-N3: phase 18 (check_loop_kernels)
+            continue
         args_list = calls[name]
         check(len(args_list) == per, f'{name}: {len(args_list)} calls a '
               f'frame, expected {per}')
@@ -3093,6 +3140,485 @@ def points_parallel_phase(data=None) -> dict:
     return pp
 
 
+# ----------------------------------------------------------------- phase 18
+
+SYNC_FRAMES = 3         # frames a path runs under sync debug mode 'error'
+# float32 operations of one pair's IoU and comparison in csrc/nms.cu,
+# counted from the source: axis-aligned, and rotated (the two boxes'
+# corners, two clips of 4 edges against 4 planes, the areas)
+NMS_PAIR_FLOPS = {False: 20.0, True: 640.0}
+KALMAN_STEP_FLOPS = 163.0   # additions of one slot's predict step (N3)
+LAP_SHAPES = ((1, 64, 16), (4, 64, 16), (1, 80, 16))    # (S, T, D) of N2
+NMS_THRESHES = (0.1, 0.5, 0.85)
+IOU_ROWS = 256          # boxes a block of the pair-IoU comparison
+
+
+def record_loop_kernels(run):
+    """Run `run()`, recording the arguments of every N1, N2 and N3 launch
+    in path order, {name: [args, ...]}; returns (calls, what `run`
+    returned)."""
+    from jmodt_torch.ops import nms
+    from jmodt_torch.tracking import device_tracker as dt
+    calls = {k['name']: [] for k in LOOP_KERNELS}
+    originals = (nms._nms_kernel, dt._lap_assign_kernel,
+                 dt._kalman_predict_kernel)
+
+    def spy(name, fn):
+        def recorded(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return recorded
+
+    nms._nms_kernel = spy('nms', originals[0])
+    dt._lap_assign_kernel = spy('lap', originals[1])
+    dt._kalman_predict_kernel = spy('kalman_predict', originals[2])
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        (nms._nms_kernel, dt._lap_assign_kernel,
+         dt._kalman_predict_kernel) = originals
+    return calls, out
+
+
+def nms_work(args, keep_idx, keep_mask):
+    """(seconds at the float32 peak, bytes) one N1 call needs on these
+    inputs: the IoU of each kept box with every live candidate ranked below
+    it (what greedy NMS must compute), each input read once and each output
+    written once."""
+    boxes, scores, _thresh, _max_keep, valid, rotated = args
+    key = scores if valid is None else torch.where(valid, scores,
+                                                   float('-inf'))
+    vals, order = torch.sort(key.float(), dim=-1, descending=True,
+                             stable=True)
+    live = (vals > float('-inf')).sum(-1, keepdim=True)
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(order.shape[1], device=order.device)
+        .expand_as(order).contiguous())
+    pos = torch.gather(rank, 1, keep_idx.long())
+    pairs = float(torch.where(keep_mask, live - 1 - pos, 0).sum())
+    nbytes = (4.0 * (boxes.numel() + scores.numel() + keep_idx.numel())
+              + keep_mask.numel() + (0 if valid is None else valid.numel()))
+    return pairs * NMS_PAIR_FLOPS[bool(rotated)] / PEAK_F32_FLOPS, nbytes
+
+
+def check_loop_kernels(calls, what, timed=True):
+    """Each recorded N1 / N2 / N3 call against its plain version on the
+    card (N1's indices and masks and N2's maps exact, N3's means and
+    covariances bit for bit) and, when `timed`, its kernel and plain ms
+    and its bound.  Returns {name: aggregate over the calls}."""
+    from jmodt_torch.ops import nms
+    from jmodt_torch.tracking import device_tracker as dt
+    agg = {}
+    for name, args_list in calls.items():
+        tot = tally('ms', 'plain_ms')
+        tot['library_ms'] = None
+        for args in args_list:
+            if name == 'nms':
+                boxes, _, thresh, max_keep, _, rotated = args
+                fns = (nms._nms_kernel, nms.nms_bev_batched_plain)
+                got, want = fns[0](*args), fns[1](*args)
+                t_ops, nbytes = nms_work(args, *want)
+                shape = (f'P={boxes.shape[0]} N={boxes.shape[1]} keep '
+                         f'{max_keep} {"rotated" if rotated else "normal"} '
+                         f'> {thresh:g}: kept '
+                         f'{want[1].sum(-1).tolist()}')
+                reps = (10, 1)
+                parts = ('indices', 'masks')
+                same = [torch.equal(g, w) for g, w in zip(got, want)]
+                call = dict(p=boxes.shape[0], n=boxes.shape[1],
+                            max_keep=max_keep, rotated=bool(rotated),
+                            kept=int(want[1].sum()))
+            elif name == 'lap':
+                aff, thresh = args
+                fns = (dt._lap_assign_kernel, dt._lap_assign_plain)
+                got, want = fns[0](*args), fns[1](*args)
+                t, d = aff.shape[-2:]
+                s = aff.numel() // (t * d)
+                # one relaxation pass over the T slots for each detection
+                t_ops = 4.0 * s * t * d / PEAK_F32_FLOPS
+                nbytes = 4.0 * (aff.numel() + s * (t + d))
+                shape = f'S={s} T={t} D={d} > {thresh:g}'
+                reps = (20, 1)
+                parts = ('track -> det', 'det -> track')
+                same = [torch.equal(g, w) for g, w in zip(got, want)]
+                call = dict(s=s, t=t, d=d)
+            else:
+                mean, cov, steps, mats = args
+                fns = (dt._kalman_predict_kernel, dt._kalman_predict_plain)
+                got, want = fns[0](*args), fns[1](*args)
+                slot_steps = float((steps.clamp(min=1).float()
+                                    * mean.shape[-2]).sum())
+                t_ops = KALMAN_STEP_FLOPS * slot_steps / PEAK_F32_FLOPS
+                nbytes = 8.0 * (mean.numel() + cov.numel()) + 4.0 * (
+                    steps.numel() + mats.q.numel())
+                shape = (f'S={steps.numel()} T={mean.shape[-2]} steps '
+                         f'{steps.tolist()}')
+                reps = (20, 2)
+                parts = ('means', 'covariances')
+                same = [torch.equal(g.view(torch.int32), w.view(torch.int32))
+                        for g, w in zip(got, want)]
+                call = dict(s=steps.numel(), t=mean.shape[-2])
+            for ok, part in zip(same, parts):
+                check(ok, f'{what}: {name} {shape}: {part} differ from the '
+                      'plain version')
+            if not timed:
+                print(f'  {name:16s} {shape}: equal to plain', flush=True)
+                continue
+            times = {'ms': cuda_ms(fns[0], args, reps[0]),
+                     'plain_ms': cuda_ms(fns[1], args, reps[1])}
+            add_times(tot, times)
+            bms, by = bound_ms(t_ops, nbytes)
+            tot['t_ops'] += t_ops
+            tot['t_bytes'] += nbytes / PEAK_BYTES
+            call.update(ms=times['ms'][0], plain_ms=times['plain_ms'][0],
+                        bound_ms=bms)
+            tot['per_call'].append(call)
+            print(f'  {name:16s} {shape}: equal to plain; kernel '
+                  f'{show(times["ms"])}  plain {show(times["plain_ms"])}  '
+                  f'bound {bms:.4f} ms ({by})', flush=True)
+        agg[name] = tot
+    return agg
+
+
+def iou_mismatches(a, b, rotated):
+    """(pairs whose IoU bits differ, pairs) between N1's pair IoU and the
+    plain IoU (`boxes_iou_bev` / `boxes_iou_normal`, as the plain NMS
+    calls it, earlier box first) over all pairs (a_i, b_j)."""
+    from jmodt_torch.ops import nms, rotated_iou
+    plain = (rotated_iou.boxes_iou_bev if rotated
+             else rotated_iou.boxes_iou_normal)
+    bad = 0
+    for i in range(0, a.shape[0], IOU_ROWS):
+        rows = a[i:i + IOU_ROWS]
+        want = plain(rows, b)
+        got = nms.pair_iou(rows.repeat_interleave(b.shape[0], 0).contiguous(),
+                           b.repeat(rows.shape[0], 1).contiguous(),
+                           rotated).view_as(want)
+        bad += int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    return bad, a.shape[0] * b.shape[0]
+
+
+def nms_cases(dev):
+    """Adversarial N1 problems: (what, boxes (P, N, 5), scores (P, N),
+    valid (P, N) or None, max_keep), made from a seed."""
+    rng = np.random.RandomState(18)
+
+    def bev(centres, size=(1.5, 4.5)):
+        wl = rng.uniform(*size, centres.shape)
+        ry = rng.uniform(-np.pi, np.pi, centres.shape[:-1] + (1,))
+        return np.concatenate([centres - wl / 2, centres + wl / 2, ry], -1)
+
+    cases = []
+    cases.append(('random', bev(rng.uniform(-20, 20, (3, 500, 2))),
+                  rng.randn(3, 500), None, 60))
+    hubs = rng.uniform(-15, 15, (12, 2))
+    clustered = hubs[rng.randint(0, 12, (3, 700))] + rng.randn(3, 700, 2) * .3
+    cases.append(('clustered', bev(clustered), rng.randn(3, 700),
+                  rng.rand(3, 700) > 0.1, 100))
+    dup = np.repeat(bev(rng.uniform(-10, 10, (1, 50, 2))), 4, axis=1)
+    cases.append(('duplicated, equal scores', dup,
+                  np.repeat(rng.randn(1, 50), 4, axis=1), None, 80))
+    cases.append(('tied scores', bev(rng.uniform(-8, 8, (3, 300, 2))),
+                  np.round(rng.randn(3, 300), 1), None, 70))
+    cases.append(('all invalid', bev(rng.uniform(-8, 8, (3, 200, 2))),
+                  rng.randn(3, 200), np.zeros((3, 200), bool), 30))
+    cases.append(('budget-capped', bev(rng.uniform(-60, 60, (3, 400, 2))),
+                  rng.randn(3, 400), None, 5))
+    for n in (5, 40, 64, 65):
+        cases.append((f'N = {n}', bev(rng.uniform(-3, 3, (3, n, 2))),
+                      rng.randn(3, n), rng.rand(3, n) > 0.2, 16))
+    return [(what, torch.tensor(b, dtype=torch.float32, device=dev),
+             torch.tensor(s, dtype=torch.float32, device=dev),
+             None if v is None else torch.tensor(v, device=dev), k)
+            for what, b, s, v, k in cases]
+
+
+def lap_cases(dev):
+    """N2 inputs at LAP_SHAPES and T = D: gated affinities with ties,
+    all-gated rows, a gated column; (1, 80, 16) in the MIP's augmented
+    form (16 dummy rows, 0 on their diagonal)."""
+    rng = np.random.RandomState(19)
+    out = []
+    for s, t, d in LAP_SHAPES + ((2, 16, 16),):
+        real = t - d if t == 80 else t
+        aff = (rng.randn(s, real, d) * 4).astype(np.float32)
+        aff[rng.rand(s, real, d) < 0.5] = -np.inf
+        aff[:, :real // 4] = -np.inf                   # gated rows
+        aff[:, :, 0] = -np.inf                         # a gated column
+        aff[:, real - 1, 1] = aff[:, real - 2, 1] = 3.0   # a tie
+        if t == 80:
+            dummy = np.where(np.eye(d, dtype=bool), 0.0, -np.inf)
+            aff = np.concatenate([aff, np.broadcast_to(
+                dummy, (s, d, d)).astype(np.float32)], axis=1)
+        out.append(torch.tensor(aff, device=dev))
+    return out
+
+
+def kalman_cases(dev):
+    """N3 inputs: (mean, cov, steps) with step counts 1-6 mixed across
+    streams (and a 0, which runs 1), exact zeros and negative zeros."""
+    rng = np.random.RandomState(20)
+    out = []
+    for steps in ([1, 2, 3, 4, 5, 6], [0, 6, 1, 3]):
+        s, t = len(steps), 64
+        mean = (rng.randn(s, t, 10) * 5).astype(np.float32)
+        a = rng.randn(s, t, 10, 10).astype(np.float32)
+        cov = (a @ a.transpose(0, 1, 3, 2) + 10 * np.eye(10)).astype(
+            np.float32)
+        mean[:, ::3, 7:] = 0.0
+        mean[:, 1::5, 4] = -0.0
+        mean[:, 2::7, 0] = -mean[:, 2::7, 7]           # sums to zero
+        cov[:, ::4, 3:7, 1:5] = 0.0
+        cov[:, 1::4, 8, :] = -0.0
+        cov[:, 2::6, 0, 2] = -cov[:, 2::6, 7, 2]
+        out.append(tuple(torch.tensor(x, device=dev) for x in (
+            mean, cov, np.array(steps, np.int32))))
+    return out
+
+
+def sync_free(what, fn):
+    """`fn()` under torch's sync debug mode 'error', where a synchronizing
+    CUDA call raises; a raise fails the phase with the port's line that
+    made the call."""
+    import traceback
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        return fn()
+    except RuntimeError as e:
+        frames = traceback.extract_tb(e.__traceback__)
+        site = next((f'{f.filename}:{f.lineno}' for f in reversed(frames)
+                     if 'jmodt_torch' in f.filename), '?')
+        raise SmokeFailure(f'{what}: synchronizing call at {site}: '
+                           f'{e}') from e
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+
+
+def check_path_launches(what, before, n_frames, per_frame):
+    from jmodt_torch.ops import kernels
+    for name, per in per_frame.items():
+        got = kernels.launches[name] - before.get(name, 0)
+        check(got == per * n_frames, f'{what}: {name} launched {got} times '
+              f'in {n_frames} frames, expected {per * n_frames}')
+
+
+def sync_free_paths(cfg, frames):
+    """The joint step (S = 1) in each assignment mode, the S = 4 lockstep
+    step, a scan chunk and a finetune step's proposal layer under sync
+    debug mode 'error', each after a warm-up outside it; N1-N3's launches
+    counted and their calls recorded.  Returns ({path: recorded calls},
+    the proposal layer's share of a timed finetune step)."""
+    import jmodt_torch.models.point_rcnn as point_rcnn
+    from jmodt_torch.models.point_rcnn import init_weights
+    from jmodt_torch.models.rcnn import CorrelationHead
+    from jmodt_torch.ops import kernels
+    from jmodt_torch.pipeline import (make_batched_joint_step,
+                                      make_joint_step, make_scan_step)
+    model, head, kw = joint_parts(cfg)
+    se = CorrelationHead(cfg.RCNN.SA_CONFIG.MLPS[-1][-1], cfg.REID.LINK_FC,
+                         use_bn=cfg.REID.USE_BN)
+    init_weights(se, 2)
+    args = [(i + 1, f['pts_input'], f['img'], f['pts_xy'])
+            for i, f in enumerate(frames)]
+    recorded = {}
+    loops = ('nms', 'lap', 'kalman_predict')
+    for assign in ('hungarian', 'mip', 'greedy'):
+        extra = dict(kw, assign=assign)
+        if assign == 'mip':
+            extra['se_head'] = se
+        joint = make_joint_step(cfg, model, head, **extra)
+        state = [joint(new_state(cfg), *args[0])[0]]      # warm-up
+
+        def run():
+            for a in args[1:1 + SYNC_FRAMES]:
+                state[0], packed = joint(state[0], *a)
+            return packed
+
+        before = dict(kernels.launches)
+        calls, packed = record_loop_kernels(
+            lambda: sync_free(f'joint step ({assign})', run))
+        check(bool(torch.isfinite(packed).all()),
+              f'joint step ({assign}): non-finite rows')
+        per = {k: PER_FRAME_JOINT[k] for k in loops}
+        if assign == 'greedy':
+            per['lap'] = 0
+        check_path_launches(f'joint step ({assign})', before, SYNC_FRAMES,
+                            per)
+        recorded[f'joint {assign}'] = calls
+        print(f'[18 device frame] joint step S=1 ({assign}): '
+              f'{SYNC_FRAMES} frames from upload to packed with no '
+              'synchronizing call; launches a frame '
+              + ', '.join(f'{k} {v}' for k, v in per.items()), flush=True)
+
+    bjoint = make_batched_joint_step(cfg, model, head, **kw)
+    states = [bjoint(new_state(cfg, streams=STREAMS),
+                     *lockstep_inputs(frames, 0, STREAMS))[0]]
+
+    def lockstep():
+        for t in (1, 2):
+            states[0], packed = bjoint(states[0],
+                                       *lockstep_inputs(frames, t, STREAMS))
+        return packed
+
+    before = dict(kernels.launches)
+    recorded['lockstep'], packed = record_loop_kernels(
+        lambda: sync_free(f'lockstep S={STREAMS}', lockstep))
+    check(packed.shape == (STREAMS, JOINT['max_tracks'], 10)
+          and bool(torch.isfinite(packed).all()),
+          f'lockstep S={STREAMS}: rows {tuple(packed.shape)}')
+    check_path_launches(f'lockstep S={STREAMS}', before, 2,
+                        {k: PER_FRAME_JOINT[k] for k in loops})
+    print(f'[18 device frame] lockstep S={STREAMS}: 2 lockstep frames with '
+          'no synchronizing call', flush=True)
+
+    scan = make_scan_step(cfg, model, head, **kw)
+    chunk = [np.stack([f[k] for f in frames[:3]])
+             for k in ('pts_input', 'img', 'pts_xy')]
+    fids = np.arange(1, 4, dtype=np.int32)
+    scan(new_state(cfg), fids, *chunk)                   # warm-up
+    state0 = new_state(cfg)
+    before = dict(kernels.launches)
+    recorded['scan'], (_, packs) = record_loop_kernels(
+        lambda: sync_free('scan chunk', lambda: scan(state0, fids, *chunk)))
+    check(packs.shape[0] == 3 and bool(torch.isfinite(packs).all()),
+          'scan chunk: rows')
+    check_path_launches('scan chunk', before, 3,
+                        {k: PER_FRAME_JOINT[k] for k in loops})
+    print('[18 device frame] scan chunk of 3 frames with no synchronizing '
+          'call', flush=True)
+    del model, head, se, joint, bjoint, scan
+
+    cfg_ft = train_cfg(True, 'bfloat16', reid_fg_thresh=0.0)
+    tmodel, _, step = train_parts(cfg_ft)
+    batches = pair_batches(cfg_ft, TRAIN_PAIRS, range(3), 'cuda')
+    step(batches[0])                                     # warm-up
+    orig = point_rcnn.proposal_layer
+    inside = []
+
+    def guarded(*a):
+        before = kernels.launches['nms']
+        out = sync_free('finetune proposal layer', lambda: orig(*a))
+        inside.append(kernels.launches['nms'] - before)
+        return out
+
+    point_rcnn.proposal_layer = guarded
+    try:
+        recorded['finetune'], _ = record_loop_kernels(
+            lambda: step(batches[1]))
+    finally:
+        point_rcnn.proposal_layer = orig
+    check(inside == [PER_STEP_FINETUNE['nms']],
+          f'finetune proposal layer: N1 launches {inside}')
+    _, _, wall, prop = timed_step(step, batches[2], proposal_share=True)
+    print(f'[18 device frame] finetune step ({TRAIN_PAIRS} pairs): the '
+          'proposal layer with no synchronizing call, N1 '
+          f'{inside[0]} launches; proposal layer {prop:.2f} of {wall:.2f} '
+          f'ms ({100 * prop / wall:.1f}%) of a synchronized step',
+          flush=True)
+    del tmodel, step
+    return recorded, prop / wall
+
+
+def device_frame_phase(frames) -> dict:
+    """Phase 18: the frame without host reads (N1 NMS, N2
+    Jonker-Volgenant, N3 Kalman predict)."""
+    import collections as co
+    from jmodt_torch import profile_step as ps
+    t0 = time.perf_counter()
+    dev = torch.device('cuda')
+    mcfg = mega_cfg('bfloat16')
+    recorded, share = sync_free_paths(mcfg, frames)
+
+    # N1's IoU bit for bit
+    bad = pairs = 0
+    eval_nms = recorded['joint hungarian']['nms']
+    train_nms = recorded['finetune']['nms']
+    sets = [(args[0][0], args[0][0][:IOU_ROWS])
+            for args in (eval_nms[0], eval_nms[2], train_nms[0])]
+    sets += [(b[0], b[0]) for _, b, _, _, _ in nms_cases(dev)]
+    for b, a in sets:
+        for rotated in (True, False):
+            n_bad, n = iou_mismatches(a, b, rotated)
+            bad, pairs = bad + n_bad, pairs + n
+    check(bad == 0, f'N1 pair IoU: {bad} of {pairs} pairs differ in their '
+          'bits from the plain IoU')
+    print(f'[18 device frame] N1 pair IoU bit-equal to the plain IoU on '
+          f'{pairs} pairs (EVAL zone 1 and final candidates, TRAIN zone 1, '
+          'the adversarial sets; rotated and axis-aligned)', flush=True)
+
+    # N1, N2, N3 on the paths' recorded calls
+    print('[18 device frame] joint step S=1 (hungarian), the main path, '
+          'its first frame timed: N1-N3 vs plain versions:', flush=True)
+    calls = recorded['joint hungarian']
+    agg = check_loop_kernels({k: v[:PER_FRAME_JOINT[k]]
+                              for k, v in calls.items()}, 'joint')
+    check_loop_kernels({k: v[PER_FRAME_JOINT[k]:] for k, v in calls.items()},
+                       'joint', timed=False)
+    for path in ('joint mip', 'joint greedy', 'lockstep', 'scan'):
+        print(f'[18 device frame] {path}: N1-N3 vs plain versions:',
+              flush=True)
+        check_loop_kernels(recorded[path], path, timed=False)
+    print(f'[18 device frame] finetune step, TRAIN proposals of '
+          f'{2 * TRAIN_PAIRS} frames: N1 vs plain version:', flush=True)
+    train_agg = check_loop_kernels({'nms': train_nms}, 'finetune')['nms']
+
+    # adversarial and fixed-shape inputs
+    cases = 0
+    for what, b, s, v, k in nms_cases(dev):
+        for rotated in (True, False):
+            for thresh in NMS_THRESHES:
+                check_loop_kernels({'nms': [(b, s, thresh, k, v, rotated)]},
+                                   f'N1 {what}', timed=False)
+                cases += 1
+    for aff in lap_cases(dev):
+        for thresh in (0.0, 1.0):
+            check_loop_kernels({'lap': [(aff, thresh)]}, 'N2', timed=False)
+    from jmodt_torch.tracking.device_tracker import _make_mats
+    mats = _make_mats(dev)
+    for mean, cov, steps in kalman_cases(dev):
+        check_loop_kernels({'kalman_predict': [(mean, cov, steps, mats)]},
+                           'N3', timed=False)
+    print(f'[18 device frame] N1 on {cases} adversarial problem sets, N2 at '
+          f'{list(LAP_SHAPES)} and T = D, N3 with steps 1-6 and signed '
+          'zeros: all equal to their plain versions', flush=True)
+
+    # where a frame's time goes, as profile_step reads it
+    times = co.defaultdict(float)
+    run, stages = ps._joint(mcfg, times)
+    run(frames[0])
+    torch.cuda.synchronize()
+    undo = stages()
+    try:
+        run(frames[1])
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for f in frames:
+        run(f)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t1) * 1e3 / len(frames)
+    reads, syncs, sites = ps._host_syncs(run, frames)
+    check(reads == 0 and syncs == 0, f'joint frame: {reads} tracker reads, '
+          f'{syncs} synchronizing calls a frame at {sites}')
+    prof = ps.device_time(run, frames)
+    print(f'[18 device frame] joint frame (Config(), MEGA_SA, bfloat16): '
+          f'{wall:.3f} ms a frame (wall, {len(frames)} frames, '
+          f'unsynchronized); profiled {prof["wall_ms"]:.3f} ms wall, '
+          f'{prof["device_ms"]:.3f} ms device (union; sum '
+          f'{prof["summed_ms"]:.3f}), idle share {prof["idle"]:.3f}; '
+          f'synchronizing calls a frame {syncs:g} (by site: '
+          f'{sites or "none"}), tracker host reads {reads:g}; synchronized '
+          f'stages: detection {times["detection"]:.3f} ms, tracker '
+          f'{times["tracker"]:.3f} ms; proposal layer '
+          f'{100 * share:.1f}% of a finetune step '
+          f'({time.perf_counter() - t0:.1f} s)', flush=True)
+    return dict(agg=agg, train_nms=train_agg, frame_ms=wall,
+                idle=prof['idle'], device_ms=prof['device_ms'],
+                syncs=syncs, share=share, tracker_ms=times['tracker'])
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3122,6 +3648,10 @@ def main(argv) -> int:
         return 0
     if argv == ['--remainder']:         # phase 16 alone
         remainder_phase(frames)
+        print_device()
+        return 0
+    if argv == ['--device-frame']:      # phase 18 alone
+        device_frame_phase(frames)
         print_device()
         return 0
     if argv:
@@ -3311,9 +3841,11 @@ def main(argv) -> int:
     dp = data_parallel_phase(frames)
     rem = remainder_phase(frames)
     pp = points_parallel_phase(dp)
+    df = device_frame_phase(frames)
+    agg.update(df['agg'])
 
     rows = []
-    for k in KERNELS:
+    for k in KERNELS + LOOP_KERNELS:
         a = agg[k['name']]
         rows.append({
             'name': k['name'], 'route': 'cuda', 'source': k['source'],
@@ -3362,6 +3894,9 @@ def main(argv) -> int:
             row['ms_train_step'] = tr['ms']
         if k['name'] == 'depth_to_space':
             row['backward_launches_train_full_step'] = full['k6_backward']
+        if k['name'] == 'nms':
+            row['per_call_train'] = df['train_nms']['per_call']
+            row['ms_train_step'] = df['train_nms']['ms']
         if 'default_ms' in a:
             row['default_path_ms'] = a['default_ms']
             row['fps_floor_ms'] = a['fps_floor_ms']

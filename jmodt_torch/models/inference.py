@@ -13,11 +13,11 @@ import numpy as np
 import torch
 
 from jmodt_torch.config import Config
-from jmodt_torch.device import resolve_device
+from jmodt_torch.device import resolve_device, upload
 from jmodt_torch.models.bbox_codec import decode_bbox_target
 from jmodt_torch.models.point_rcnn import PointRCNN
 from jmodt_torch.ops.geometry import boxes3d_to_bev
-from jmodt_torch.ops.nms import nms_bev
+from jmodt_torch.ops.nms import nms_bev_batched
 from jmodt_torch.ops.rotated_iou import boxes_iou3d
 
 # ImageNet stats, applied in the step when it receives a raw uint8 image
@@ -44,10 +44,10 @@ def make_detection_step(cfg: Config, model: PointRCNN, device=None):
 
     @torch.no_grad()
     def step(pts, img, xy) -> Dict[str, torch.Tensor]:
-        pts = torch.as_tensor(pts, device=dev)
-        xy = torch.as_tensor(xy, device=dev)
+        pts = upload(pts, dev)
+        xy = upload(xy, dev)
         if img is not None:
-            img = torch.as_tensor(img, device=dev)
+            img = upload(img, dev)
             if img.dtype == torch.uint8:
                 img = (img.float() / 255.0 - mean) / std
         out = model(pts, img, xy)
@@ -74,15 +74,13 @@ def make_detection_step(cfg: Config, model: PointRCNN, device=None):
 
         norm_scores = torch.sigmoid(rcnn_cls)
         inds = (norm_scores > cfg.RCNN.SCORE_THRESH) & out['roi_mask']
-        frames = []
-        for i in range(b):
-            keep_idx, keep_mask = nms_bev(
-                boxes3d_to_bev(pred_boxes[i]), rcnn_cls[i],
-                cfg.RCNN.NMS_THRESH, max_keep=m, valid=inds[i], rotated=True)
-            k = keep_idx.long()
-            frames.append((pred_boxes[i][k], norm_scores[i][k],
-                           rcnn_feat[i][k], keep_mask))
-        boxes, scores, feats, keep = (torch.stack(p) for p in zip(*frames))
+        keep_idx, keep = nms_bev_batched(
+            boxes3d_to_bev(pred_boxes), rcnn_cls, cfg.RCNN.NMS_THRESH,
+            max_keep=m, valid=inds, rotated=True)
+        k = keep_idx.long()
+        boxes, feats = (torch.gather(x, 1, k[..., None].expand(
+            -1, -1, x.shape[-1])) for x in (pred_boxes, rcnn_feat))
+        scores = torch.gather(norm_scores, 1, k)
         packed = torch.cat([boxes, scores[..., None],
                             keep.to(boxes.dtype)[..., None], feats], dim=-1)
         return {'boxes': boxes, 'scores': scores, 'feats': feats,

@@ -20,19 +20,20 @@ from typing import NamedTuple, Optional
 import torch
 
 from jmodt_torch.config import Config
+from jmodt_torch.device import upload
 from jmodt_torch.models.bbox_codec import decode_bbox_target
 from jmodt_torch.ops.geometry import boxes3d_to_bev, rotate_points_along_y
 from jmodt_torch.ops.grouping import first_k_true
-from jmodt_torch.ops.nms import nms_bev
+from jmodt_torch.ops.nms import nms_bev_batched
 from jmodt_torch.ops.roipool3d import roipool3d
 from jmodt_torch.ops.rotated_iou import boxes_iou3d
 
 
 def first_k_indices(mask: torch.Tensor, k: int):
-    """First k true positions of a 1-D `mask`, in order; (idx (k,) int64,
-    valid (k,) bool), idx 0 where invalid."""
+    """First k true positions along the last dim of `mask`, in order;
+    (idx (..., k) int64, valid (..., k) bool), idx 0 where invalid."""
     idx = first_k_true(mask, k)
-    valid = idx < mask.shape[0]
+    valid = idx < mask.shape[-1]
     return torch.where(valid, idx, torch.zeros_like(idx)), valid
 
 
@@ -43,59 +44,67 @@ class Proposals(NamedTuple):
 
 
 def _nms_select(cand_boxes, cand_scores, valid, post, thresh, rotated):
-    keep, kmask = nms_bev(boxes3d_to_bev(cand_boxes), cand_scores, thresh,
-                          max_keep=post, valid=valid, rotated=rotated)
+    """NMS of B frames' candidates at once: cand_boxes (B, K, 7),
+    cand_scores (B, K), valid (B, K) or None -> the kept ((B, post, 7),
+    (B, post), (B, post) bool), invalid rows zero."""
+    keep, kmask = nms_bev_batched(boxes3d_to_bev(cand_boxes), cand_scores,
+                                  thresh, max_keep=post, valid=valid,
+                                  rotated=rotated)
     keep = keep.long()
-    boxes = torch.where(kmask[:, None], cand_boxes[keep],
-                        torch.zeros_like(cand_boxes[keep]))
-    scores = torch.where(kmask, cand_scores[keep],
-                         torch.zeros_like(cand_scores[keep]))
-    return boxes, scores, kmask
+    boxes = torch.gather(cand_boxes, 1, keep[..., None].expand(-1, -1, 7))
+    scores = torch.gather(cand_scores, 1, keep)
+    return (torch.where(kmask[..., None], boxes, torch.zeros_like(boxes)),
+            torch.where(kmask, scores, torch.zeros_like(scores)), kmask)
 
 
 def _distance_zone_proposal(scores, proposals, pre_n, post_n, thresh,
                             rotated):
-    """Two-zone distance-based proposal for one frame: scores (N,),
-    proposals (N, 7) -> ((post_n, 7), (post_n,), (post_n,))."""
-    order = torch.argsort(-scores, stable=True)
-    s = scores[order]
-    p = proposals[order]
-    dist = p[:, 2]
+    """Two-zone distance-based proposal for B frames: scores (B, N),
+    proposals (B, N, 7) -> ((B, post_n, 7), (B, post_n), (B, post_n)).
+    Zone 2 is chosen per frame without a branch, as the JAX package's
+    `has2` does."""
+    order = torch.argsort(-scores, dim=-1, stable=True)
+    s = torch.gather(scores, 1, order)
+    p = torch.gather(proposals, 1, order[..., None].expand(-1, -1, 7))
+    dist = p[..., 2]
     m1 = (dist > 0.0) & (dist <= 40.0)
     m2 = (dist > 40.0) & (dist <= 80.0)
 
-    n = scores.shape[0]
+    n = scores.shape[1]
     pre1 = min(int(pre_n * 0.7), n)
     pre2 = min(pre_n - int(pre_n * 0.7), n)
     post1 = int(post_n * 0.7)
     post2 = post_n - post1
 
     idx1, v1 = first_k_indices(m1, pre1)
-    # zone 2, or, when it is empty, zone 1's ranks [pre1 : pre1 + pre2]
-    if bool(m2.any()):
-        idx2, v2 = first_k_indices(m2, pre2)
-    else:
-        k_f = min(pre1 + pre2, n)
-        idx_f, v_f = first_k_indices(m1, k_f)
-        idx2 = torch.zeros(pre2, dtype=idx_f.dtype, device=idx_f.device)
-        v2 = torch.zeros(pre2, dtype=torch.bool, device=idx_f.device)
-        idx2[:k_f - pre1] = idx_f[pre1:]
-        v2[:k_f - pre1] = v_f[pre1:]
+    # zone 2, or, where it is empty, zone 1's ranks [pre1 : pre1 + pre2]
+    idx2a, v2a = first_k_indices(m2, pre2)
+    k_f = min(pre1 + pre2, n)
+    idx_f, v_f = first_k_indices(m1, k_f)
+    idx2b = torch.zeros_like(idx2a)
+    v2b = torch.zeros_like(v2a)
+    idx2b[:, :k_f - pre1] = idx_f[:, pre1:]
+    v2b[:, :k_f - pre1] = v_f[:, pre1:]
+    has2 = m2.any(-1, keepdim=True)
+    idx2 = torch.where(has2, idx2a, idx2b)
+    v2 = torch.where(has2, v2a, v2b)
 
     outs = []
-    neg_inf = torch.tensor(float('-inf'), dtype=s.dtype, device=s.device)
     for idx, v, post in ((idx1, v1, post1), (idx2, v2, post2)):
-        outs.append(_nms_select(p[idx], torch.where(v, s[idx], neg_inf), v,
-                                post, thresh, rotated))
-    return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
+        cand_boxes = torch.gather(p, 1, idx[..., None].expand(-1, -1, 7))
+        cand_scores = torch.where(v, torch.gather(s, 1, idx), float('-inf'))
+        outs.append(_nms_select(cand_boxes, cand_scores, v, post, thresh,
+                                rotated))
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
 
 def _score_zone_proposal(scores, proposals, pre_n, post_n, thresh, rotated):
-    """Plain score-ranked proposal for one frame."""
-    order = torch.argsort(-scores, stable=True)
-    idx = order[:min(pre_n, scores.shape[0])]
-    return _nms_select(proposals[idx], scores[idx], None, post_n, thresh,
-                       rotated)
+    """Plain score-ranked proposal for B frames."""
+    idx = torch.argsort(-scores, dim=-1, stable=True)[
+        :, :min(pre_n, scores.shape[1])]
+    return _nms_select(
+        torch.gather(proposals, 1, idx[..., None].expand(-1, -1, 7)),
+        torch.gather(scores, 1, idx), None, post_n, thresh, rotated)
 
 
 def proposal_layer(cfg: Config, mode: str, rpn_scores: torch.Tensor,
@@ -107,7 +116,7 @@ def proposal_layer(cfg: Config, mode: str, rpn_scores: torch.Tensor,
     """
     mc = cfg.mode_cfg(mode)
     b, n = rpn_scores.shape
-    anchor = torch.tensor(cfg.mean_size, device=xyz.device)
+    anchor = upload(cfg.mean_size, xyz.device, torch.float32)
     props = decode_bbox_target(
         xyz.reshape(-1, 3), rpn_reg.reshape(-1, rpn_reg.shape[-1]),
         anchor_size=anchor,
@@ -122,11 +131,8 @@ def proposal_layer(cfg: Config, mode: str, rpn_scores: torch.Tensor,
         fn, rotated = _distance_zone_proposal, cfg.RPN.NMS_TYPE == 'rotate'
     else:
         fn, rotated = _score_zone_proposal, True
-    frames = [fn(rpn_scores[i], props[i], mc.RPN_PRE_NMS_TOP_N,
-                 mc.RPN_POST_NMS_TOP_N, mc.RPN_NMS_THRESH, rotated)
-              for i in range(b)]
-    boxes, scores, mask = (torch.stack(parts) for parts in zip(*frames))
-    return Proposals(boxes, scores, mask)
+    return Proposals(*fn(rpn_scores, props, mc.RPN_PRE_NMS_TOP_N,
+                         mc.RPN_POST_NMS_TOP_N, mc.RPN_NMS_THRESH, rotated))
 
 
 def pool_rois_for_eval(cfg: Config, rpn_xyz, rpn_features, seg_mask,
@@ -237,14 +243,13 @@ def random_aug_box3d(box3d, row, pos, hwl, ang, method: str):
         hwl_scale = hwl * 0.3 + 1.0
         angle_rot = ang * (math.pi / 6)
     elif method == 'multiple':
-        tbl = torch.tensor(_AUG_RANGE_CONFIG, dtype=torch.float32,
-                           device=dev)[row]
+        tbl = upload(_AUG_RANGE_CONFIG, dev, torch.float32)[row]
         pos_shift = pos * tbl[..., 0:1]
         hwl_scale = hwl * tbl[..., 1:2] + 1.0
         angle_rot = ang * tbl[..., 2]
     elif method == 'normal':
-        pos_shift = pos * torch.tensor([0.3, 0.2, 0.3], device=dev)
-        hwl_scale = 1.0 + (hwl * torch.tensor([0.25, 0.15, 0.5], device=dev)
+        pos_shift = pos * upload([0.3, 0.2, 0.3], dev)
+        hwl_scale = 1.0 + (hwl * upload([0.25, 0.15, 0.5], dev)
                            / torch.clamp(box3d[..., 3:6], min=1e-3))
         angle_rot = ang * (math.pi / 12)
     else:

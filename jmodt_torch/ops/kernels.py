@@ -5,7 +5,8 @@ use on a CUDA tensor they are compiled for Hopper (`sm_90a`), one `nvcc`
 per source, all started together, and linked into one shared library under
 `build/` at the repo root, named by a hash of the sources; a later process
 finds it there.  The library is loaded with `ctypes`: every pointer and the
-stream go in as `c_void_p`, every C entry returns `cudaGetLastError()`, and
+stream go in as `c_void_p` (ints as `c_int`, floats as `c_float`), every C
+entry returns `cudaGetLastError()`, and
 `launch` raises if that is not 0.  Kernels launch on the current stream
 of their tensors' card and allocate nothing; the wrappers allocate with
 `torch.empty`.
@@ -31,12 +32,16 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 _BUILD = Path(__file__).resolve().parents[2] / 'build'
 _SOURCES = ('fps.cu', 'three_nn.cu', 'grouped_gather_mlp.cu',
-            'sa_level.cu', 'depth_to_space.cu')
+            'sa_level.cu', 'depth_to_space.cu', 'nms.cu', 'tracker.cu')
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-Xcompiler', '-fPIC')
+# flags of one source on top of _NVCC_FLAGS: N1-N3 must round every product
+# and sum on its own, as the plain PyTorch versions they are held to do
+_FILE_FLAGS = {'nms.cu': ('-fmad=false',), 'tracker.cu': ('-fmad=false',)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of every entry: (argtypes); restype is int (cudaError_t)
 _SIGNATURES = {
     'jmodt_fps': (_P, _I, _I, _I, _I, _I, _I, _P, _P),
@@ -52,6 +57,10 @@ _SIGNATURES = {
                        _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
                        ctypes.POINTER(_P), _P, _P, _P, _P, _P),
     'jmodt_depth_to_space': (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    'jmodt_nms': (_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P),
+    'jmodt_nms_iou': (_P, _P, _I, _I, _P, _P),
+    'jmodt_lap': (_P, _I, _I, _I, _F, _P, _P, _P),
+    'jmodt_kalman_predict': (_P, _P, _P, _P, _I, _I, _P, _P, _P),
 }
 
 launches: collections.Counter = collections.Counter()
@@ -73,6 +82,7 @@ def library_path() -> Path:
         digest.update(name.encode())
         digest.update((_CSRC / name).read_bytes())
     digest.update(' '.join(_NVCC_FLAGS).encode())
+    digest.update(repr(sorted(_FILE_FLAGS.items())).encode())
     return _BUILD / f'libjmodt_kernels_{digest.hexdigest()[:16]}.so'
 
 
@@ -91,7 +101,8 @@ def build() -> float:
         def compile_one(src_obj):
             src, obj = src_obj
             return subprocess.run(
-                [nvcc, *_NVCC_FLAGS, '-c', str(_CSRC / src), '-o', str(obj)],
+                [nvcc, *_NVCC_FLAGS, *_FILE_FLAGS.get(src, ()), '-c',
+                 str(_CSRC / src), '-o', str(obj)],
                 capture_output=True, text=True)
 
         with ThreadPoolExecutor(len(_SOURCES)) as pool:

@@ -23,8 +23,9 @@ frame first.  Prints:
   detection, top-K and packing, tracker; detection: the backbone's and
   heads' modules, proposals, RoI pooling and the final NMS;
 * host syncs per frame: every synchronizing CUDA call of the frame (torch's
-  sync debug mode) and, joint and batched, the tracker's own
-  device-to-host reads (`device_tracker.host_syncs`);
+  sync debug mode), in all and by call site (the file:line whose call
+  synchronized), and, joint and batched, the tracker's own device-to-host
+  reads (`device_tracker.host_syncs`);
 * frame: unsynchronized wall ms per frame over N frames (batched: also per
   stream-frame), the device time per frame from torch.profiler as the
   union of the kernels' intervals (kernels that overlap, as K5's two
@@ -110,17 +111,17 @@ def _detection(cfg, times):
     def stages():
         hooks = _stage_hooks(model, times)
         saved = (point_rcnn.proposal_layer, point_rcnn.pool_rois_for_eval,
-                 inference.nms_bev)
+                 inference.nms_bev_batched)
         point_rcnn.proposal_layer = _timed(saved[0], times, 'proposal_layer')
         point_rcnn.pool_rois_for_eval = _timed(saved[1], times,
                                                'pool_rois_for_eval')
-        inference.nms_bev = _timed(saved[2], times, 'final nms_bev')
+        inference.nms_bev_batched = _timed(saved[2], times, 'final nms')
 
         def undo():
             for h in hooks:
                 h.remove()
             (point_rcnn.proposal_layer, point_rcnn.pool_rois_for_eval,
-             inference.nms_bev) = saved
+             inference.nms_bev_batched) = saved
         return undo
 
     return run, stages
@@ -181,23 +182,65 @@ def _joint(cfg, times, streams=None):
     return run, stages
 
 
-def _host_syncs(run, frames):
-    """(tracker device-to-host reads, synchronizing CUDA calls) per frame,
-    over `frames` run one after the other."""
-    from jmodt_torch.tracking import device_tracker
-    before = device_tracker.host_syncs
+def sync_sites(run, n_frames: int):
+    """Run `run()` under torch's sync debug mode ('warn') and return the
+    synchronizing CUDA calls it made per frame, by call site: {"file:line":
+    calls a frame}, the file relative to the package's parent."""
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter('always')
         torch.cuda.set_sync_debug_mode('warn')
         try:
-            for f in frames:
-                run(f)
-            torch.cuda.synchronize()
+            run()
         finally:
             torch.cuda.set_sync_debug_mode('default')
-    syncs = sum('synchroniz' in str(w.message) for w in seen)
-    n = len(frames)
-    return (device_tracker.host_syncs - before) / n, syncs / n
+    sites = collections.Counter(
+        f'{os.path.relpath(w.filename, root)}:{w.lineno}' for w in seen
+        if 'called a synchronizing' in str(w.message))
+    return {k: v / n_frames for k, v in sites.most_common()}
+
+
+def _host_syncs(run, frames):
+    """(tracker device-to-host reads, synchronizing CUDA calls, those calls
+    by call site) per frame, over `frames` run one after the other."""
+    from jmodt_torch.tracking import device_tracker
+    before = device_tracker.host_syncs
+
+    def all_frames():
+        for f in frames:
+            run(f)
+
+    sites = sync_sites(all_frames, len(frames))
+    torch.cuda.synchronize()
+    return ((device_tracker.host_syncs - before) / len(frames),
+            sum(sites.values()), sites)
+
+
+def device_time(run, frames) -> dict:
+    """`run` over `frames`, unsynchronized but for a synchronize at the
+    end, under torch.profiler: wall ms a frame, device ms a frame as the
+    union of the kernels' intervals and as the sum of their durations, the
+    idle share by each, the kernels' key averages and the profile."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in frames:
+            run(f)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / len(frames)
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    summed = sum(e.self_device_time_total for e in kern) / 1e3 / len(frames)
+    dev = union_length((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == cuda) / 1e3 / len(frames)
+    return dict(wall_ms=wall, device_ms=dev, summed_ms=summed,
+                idle=max(0.0, 1 - dev / wall),
+                idle_by_sum=max(0.0, 1 - summed / wall), kernels=kern,
+                profile=prof)
 
 
 def _compare_deconv(run, frames):
@@ -290,32 +333,19 @@ def main() -> None:
     print(f'  {rest:32s} {total - sum(times.values()):9.3f}')
     print(f'  {"total":32s} {total:9.3f}')
 
-    trk, allsync = _host_syncs(run, frames[1:])
+    trk, allsync, sites = _host_syncs(run, frames[1:])
     print(f'host syncs per frame: tracker {trk:.1f} (device-to-host '
           f'reads), whole frame {allsync:.1f} (synchronizing CUDA calls, '
-          f'sync debug mode; {args.frames} frames)')
+          f'sync debug mode; {args.frames} frames); by call site: '
+          + (', '.join(f'{k} {v:g}' for k, v in sites.items()) or 'none'))
 
-    # unsynchronized frames under the profiler
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for f in frames[1:]:
-            run(f)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / args.frames
-    cuda = torch.autograd.DeviceType.CUDA
-    kern = [e for e in prof.key_averages() if e.device_type == cuda]
-    summed = sum(e.self_device_time_total for e in kern) / 1e3 / args.frames
-    dev = union_length((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == cuda) / 1e3 / args.frames
+    prof = device_time(run, frames[1:])
+    wall, dev, summed, kern = (prof[k] for k in ('wall_ms', 'device_ms',
+                                                 'summed_ms', 'kernels'))
     print(f'frame: {wall:.3f} ms wall, {dev:.3f} ms of device time (union '
           f'of kernel intervals; sum of kernel durations {summed:.3f}), '
-          f'idle share {max(0.0, 1 - dev / wall):.3f} (by the sum '
-          f'{max(0.0, 1 - summed / wall):.3f}) ({args.frames} frames, '
-          'profiled)')
+          f'idle share {prof["idle"]:.3f} (by the sum '
+          f'{prof["idle_by_sum"]:.3f}) ({args.frames} frames, profiled)')
     if streams:
         print(f'stream-frame: {wall / streams:.3f} ms wall, '
               f'{dev / streams:.3f} ms of device time ({streams} streams)')
@@ -323,7 +353,7 @@ def main() -> None:
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:20]:
         print(f'  {e.self_device_time_total / 1e3 / args.frames:9.3f}  '
               f'x{e.count // args.frames:<5d} {e.key[:90]}')
-    host = [e for e in prof.key_averages()
+    host = [e for e in prof['profile'].key_averages()
             if e.device_type == torch.autograd.DeviceType.CPU]
     print('host ops by self CPU time per frame, ms:')
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:20]:

@@ -25,12 +25,15 @@ One step serves S independent streams in lockstep (the JAX package's vmap
 of its single-stream step, written out as a leading S axis on the state
 and every tensor); the single-stream step runs it with S = 1.
 
-Host syncs: the predict steps of the S streams are read to the host (one
-read a frame: the Kalman loop runs to the largest count and masks each
-stream), and the Jonker-Volgenant loops run, stream after stream, over one
-host copy of the (S, T, D) affinity (one copy a frame for 'hungarian' and
-'mip'), with the same float32 arithmetic as on the device.  `host_syncs`
-counts these reads.
+Host syncs: none on the card.  The Kalman predict loop (N3) and the
+Jonker-Volgenant assignment (N2) are CUDA kernels (`csrc/tracker.cu`) that
+run each stream's own loop on the device, as the JAX package's
+`fori_loop` / `while_loop` do.  Their plain versions, which CPU tensors
+take, read the predict steps to the host (the loop runs to the largest
+count and masks each stream) and run the assignment stream after stream
+on a host copy of the (S, T, D) affinity, with the kernels' float32
+arithmetic.  `host_syncs` counts the reads made on CUDA tensors, so it
+reads 0 a frame on the card.
 """
 
 from __future__ import annotations
@@ -42,17 +45,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from jmodt_torch.device import resolve_device
+from jmodt_torch.device import resolve_device, upload
 from jmodt_torch.models.rcnn import masked_bidirectional_softmax
+from jmodt_torch.ops import kernels
 from jmodt_torch.ops.geometry import boxes_center_dist_affinity
 from jmodt_torch.ops.rotated_iou import boxes_iou3d
 
 _DIM_X = 10   # [x, y, z, h, w, l, ry, vx, vy, vz]
 _DIM_Z = 7    # [x, y, z, h, w, l, ry]
 
-# device-to-host reads made by tracker steps on CUDA tensors, counted like
-# the kernels' launches
+# device-to-host reads made by the plain versions on CUDA tensors, counted
+# like the kernels' launches
 host_syncs = 0
+LAP_MAX_SLOTS = 128     # N2 holds 4 track slots a lane
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
@@ -132,11 +137,21 @@ def _set_col(x: torch.Tensor, col: int, val: torch.Tensor) -> torch.Tensor:
 
 
 def _kalman_predict(mean, cov, steps: torch.Tensor, mats: KalmanMats):
-    """Advance the slots of each stream `steps` (>= 1) constant-velocity
+    """Advance the slots of each stream max(`steps`, 1) constant-velocity
     steps.  mean (..., T, 10), cov (..., T, 10, 10), steps an int tensor
-    with the leading dims of `mean` (one count a stream).  The counts are
-    read to the host once: the loop runs to the largest count and each
-    stream keeps the state of its own count."""
+    with the leading dims of `mean` (one count a stream).  On the card N3
+    runs each stream's own count; on the CPU the plain version."""
+    if kernels.on_card(mean):
+        mean, cov = _kalman_predict_kernel(mean, cov, steps, mats)
+    else:
+        mean, cov = _kalman_predict_plain(mean, cov, steps, mats)
+    return _set_col(mean, 6, _wrap(mean[..., 6])), cov
+
+
+def _kalman_predict_plain(mean, cov, steps, mats: KalmanMats):
+    """N3's plain version, before the angle wrap.  The counts are read to
+    the host once: the loop runs to the largest count and each stream
+    keeps the state of its own count."""
     steps = torch.clamp(steps, min=1)
     host = _to_host(steps)
     lo, hi = int(host.min()), int(host.max())
@@ -149,7 +164,26 @@ def _kalman_predict(mean, cov, steps: torch.Tensor, mats: KalmanMats):
             go = (steps > i)[..., None, None]
             mean, cov = torch.where(go, m, mean), torch.where(go[..., None],
                                                               c, cov)
-    return _set_col(mean, 6, _wrap(mean[..., 6])), cov
+    return mean, cov
+
+
+def _kalman_predict_kernel(mean, cov, steps, mats: KalmanMats):
+    """N3 (`jmodt_kalman_predict`): the plain version's sums, bit for bit,
+    with the step counts read on the device.  F must be `_make_mats`'s."""
+    t = mean.shape[-2]
+    s = mean[..., 0, 0].numel()
+    mean, cov = mean.contiguous(), cov.contiguous()
+    kernels.check_cuda('kalman mean', mean, torch.float32, (*mean.shape[:-2],
+                                                            t, _DIM_X))
+    kernels.check_cuda('kalman cov', cov, torch.float32,
+                       (*mean.shape[:-2], t, _DIM_X, _DIM_X))
+    steps = steps.to(torch.int32).expand(mean.shape[:-2]).contiguous()
+    q = mats.q.contiguous()
+    mean_out, cov_out = torch.empty_like(mean), torch.empty_like(cov)
+    kernels.launch('kalman_predict', 'jmodt_kalman_predict', mean.data_ptr(),
+                   cov.data_ptr(), steps.data_ptr(), q.data_ptr(), s, t,
+                   mean_out.data_ptr(), cov_out.data_ptr(), device=mean.device)
+    return mean_out, cov_out
 
 
 def _kalman_update(mean, cov, z7, apply_mask, mats: KalmanMats):
@@ -241,10 +275,34 @@ def _lap_assign(affinity: torch.Tensor, match_thresh: float):
 
     affinity (..., T, D) with -inf for invalid pairs, T >= D; leading dims
     are independent streams.  Returns (track -> det (..., T) int32, -1
-    unmatched; det -> track (..., D) int32).  The loops run, stream after
-    stream, on one host copy of the whole tensor (one read for a CUDA
-    tensor); the results go back to the tensor's device.
+    unmatched; det -> track (..., D) int32).  On the card N2 runs a warp a
+    stream; on the CPU the plain version.
     """
+    if kernels.on_card(affinity):
+        return _lap_assign_kernel(affinity, match_thresh)
+    return _lap_assign_plain(affinity, match_thresh)
+
+
+def _lap_assign_kernel(affinity: torch.Tensor, match_thresh: float):
+    """N2 (`jmodt_lap`): the plain version's float32 steps, on the device."""
+    t, d = affinity.shape[-2:]
+    if t < d or t > LAP_MAX_SLOTS:
+        raise ValueError(f'lap: {t} track slots for {d} dets; N2 takes '
+                         f'{LAP_MAX_SLOTS} >= T >= D')
+    lead = affinity.shape[:-2]
+    aff = affinity.float().contiguous()
+    s = aff[..., 0, 0].numel()
+    t2d = torch.empty((*lead, t), dtype=torch.int32, device=aff.device)
+    d2t = torch.empty((*lead, d), dtype=torch.int32, device=aff.device)
+    kernels.launch('lap', 'jmodt_lap', aff.data_ptr(), s, t, d, match_thresh,
+                   t2d.data_ptr(), d2t.data_ptr(), device=aff.device)
+    return t2d, d2t
+
+
+def _lap_assign_plain(affinity: torch.Tensor, match_thresh: float):
+    """N2's plain version: the loops run, stream after stream, on one host
+    copy of the whole tensor (one read for a CUDA tensor); the results go
+    back to the tensor's device."""
     t, d = affinity.shape[-2:]
     aff = _to_host(affinity).reshape(-1, t, d)
     t2d, d2t = zip(*(_jonker_volgenant(a, match_thresh) for a in aff))
@@ -360,9 +418,10 @@ def make_batched_tracker_step(link_head: nn.Module, t_miss: int = 2,
 
     step(states, frame_ids (S,), det_boxes (S, D, 7), det_scores (S, D),
     det_feats (S, D, C), det_mask (S, D)) -> (states, outputs), states from
-    `init_batched_state` and every output with a leading S axis.  A frame
-    reads the device twice, whatever S is ('greedy': once): the (S,)
-    predict steps and, for 'hungarian' and 'mip', the (S, T, D) affinity.
+    `init_batched_state` and every output with a leading S axis.  On the
+    card a frame reads nothing back to the host; on the CPU the plain
+    versions read twice ('greedy': once): the (S,) predict steps and, for
+    'hungarian' and 'mip', the (S, T, D) affinity.
     """
     assert assign in ('mip', 'hungarian', 'greedy'), assign
     if assign == 'mip':
@@ -376,12 +435,11 @@ def make_batched_tracker_step(link_head: nn.Module, t_miss: int = 2,
     @torch.no_grad()
     def step(state: TrackerState, frame_id, det_boxes, det_scores,
              det_feats, det_mask):
-        f32 = dict(dtype=torch.float32, device=dev)
-        frame_id = torch.as_tensor(frame_id, dtype=torch.int32, device=dev)
-        det_boxes = torch.as_tensor(det_boxes, **f32)
-        det_scores = torch.as_tensor(det_scores, **f32)
-        det_feats = torch.as_tensor(det_feats, **f32)
-        det_mask = torch.as_tensor(det_mask, dtype=torch.bool, device=dev)
+        frame_id = upload(frame_id, dev, torch.int32)
+        det_boxes, det_scores, det_feats = (
+            upload(x, dev, torch.float32)
+            for x in (det_boxes, det_scores, det_feats))
+        det_mask = upload(det_mask, dev, torch.bool)
         n_seq, tcap = state.tid.shape
         ndet = det_boxes.shape[1]
         active = state.tid > 0                                    # (S, T)
@@ -517,13 +575,13 @@ def make_device_tracker_step(link_head: nn.Module, device=None, **kw):
     (D, C), det_mask (D,)) -> (state, output), output a dict of 'tid' (T,),
     'box' (T, 7), 'score' (T,), 'det_idx' (T,) and 'emit' (T,) bool.
     """
-    batched = make_batched_tracker_step(link_head, device=device, **kw)
+    dev = resolve_device(device)
+    batched = make_batched_tracker_step(link_head, device=dev, **kw)
 
     def step(state: TrackerState, frame_id, det_boxes, det_scores,
              det_feats, det_mask):
-        one = [torch.as_tensor(x)[None] for x in (frame_id, det_boxes,
-                                                   det_scores, det_feats,
-                                                   det_mask)]
+        one = [upload(x, dev)[None] for x in (
+            frame_id, det_boxes, det_scores, det_feats, det_mask)]
         states = state._replace(**{k: v[None] for k, v in
                                    state._asdict().items() if k != 'mats'})
         states, out = batched(states, *one)

@@ -401,3 +401,142 @@ def test_batched_tracker_step_matches_single_streams():
                 assert torch.equal(out[key], bout[key][s])
             for key in ('box', 'score'):
                 assert _rel_err(out[key].numpy(), bout[key][s].numpy()) < TOL
+
+
+# ------------------------------------------- N2 and N3 (csrc/tracker.cu)
+
+_LANES = 32
+
+
+def _first_min(a, b):
+    """The (value, column) pair N2's butterfly keeps: the lower value, the
+    lower column on ties."""
+    return b if (b[0] < a[0] or (b[0] == a[0] and b[1] < a[1])) else a
+
+
+def _n2_emulation(aff, thresh):
+    """N2's warp in numpy float32: column j in lane j % 32 (its register
+    j // 32), each lane's first minimum over its columns in ascending
+    order, then a XOR butterfly over (value, column); the relaxation, dual
+    update and walk-back of `_jonker_volgenant`."""
+    f32 = np.float32
+    t, d = aff.shape
+    gated = np.where(np.isfinite(aff), aff, f32(-1e4)).astype(f32)
+    cost = -gated.T
+    v = np.zeros(t, f32)
+    col2row, row2col = [-1] * t, [-1] * d
+    for r in range(d):
+        dvec = cost[r] - v
+        pred = np.full(t, r)
+        scanned = np.zeros(t, bool)
+        jfree = -1
+        for _ in range(t):
+            best = []
+            for lane in range(_LANES):
+                pair = (f32(np.inf), 1 << 31)
+                for j in range(lane, t, _LANES):
+                    key = f32(1e30) if scanned[j] else dvec[j]
+                    if key < pair[0]:
+                        pair = (key, j)
+                best.append(pair)
+            off = _LANES // 2
+            while off:
+                best = [_first_min(best[lane], best[lane ^ off])
+                        for lane in range(_LANES)]
+                off //= 2
+            assert len(set(best)) == 1          # every lane agrees
+            j = best[0][1]
+            scanned[j] = True
+            i = col2row[j]
+            if i < 0:
+                jfree = j
+                break
+            red = (dvec[j] + (cost[i] - v)) - (cost[i, j] - v[j])
+            upd = ~scanned & (red < dvec)
+            pred = np.where(upd, i, pred)
+            dvec = np.where(upd, red, dvec)
+        scanned[jfree] = False
+        v = np.where(scanned, (v + dvec) - dvec[jfree], v)
+        j = jfree
+        while True:
+            i = int(pred[j])
+            col2row[j] = i
+            j, row2col[i] = row2col[i], j
+            if i == r:
+                break
+    t2d = np.array([c if c >= 0 and gated[k, c] > thresh else -1
+                    for k, c in enumerate(col2row)], np.int32)
+    d2t = np.array([c if c >= 0 and gated[c, k] > thresh else -1
+                    for k, c in enumerate(row2col)], np.int32)
+    return t2d, d2t
+
+
+def _n2_affinity(shape):
+    """Gated affinities with ties and all-gated rows; 'mip' is the MIP's
+    augmented form: 64 track rows and 16 dummy rows, 0 on their
+    diagonal."""
+    if shape == 'mip':
+        aff = _gated_affinity(80, 64, 16)
+        dummy = np.where(np.eye(16, dtype=bool), 0.0, -np.inf)
+        return np.concatenate([aff, dummy.astype(np.float32)])
+    t, d = shape
+    aff = _gated_affinity(t * d, t, d)
+    aff[t // 2] = aff[t // 2 + 1]                   # two equal rows
+    return aff
+
+
+@pytest.mark.parametrize('shape', [(64, 16), (16, 16), (8, 4), 'mip'])
+def test_n2_emulation_matches_jonker_volgenant(shape):
+    """N2's lane split and first-minimum reduction give the plain
+    `_jonker_volgenant`'s and JAX's `_lap_assign`'s matching exactly."""
+    aff = _n2_affinity(shape)
+    for thresh in (0.0, 1.0):
+        got = _n2_emulation(aff, thresh)
+        plain = tdt._jonker_volgenant(_t(aff), thresh)
+        jax_t, jax_d = jdt._lap_assign(jnp.asarray(aff), thresh)
+        for g, p, j in zip(got, plain, (jax_t, jax_d)):
+            np.testing.assert_array_equal(g, p.numpy())
+            np.testing.assert_array_equal(g, np.asarray(j))
+    assert (got[0] >= 0).sum() > 0
+
+
+def _n3_emulation(mean, cov, steps, q):
+    """N3's sums in numpy float32: each stream's max(steps, 1) steps of
+    m_i += m_(i+7), A_ij = C_ij + C_(i+7)j (i < 3), B_ij = A_ij + A_i(j+7)
+    (j < 3), C = B + Q, every sum started from +0."""
+    zero = np.float32(0.0)
+    mean, cov = mean.copy(), cov.copy()
+    for s, n in enumerate(steps):
+        m, c = mean[s], cov[s]
+        for _ in range(max(int(n), 1)):
+            m = zero + m
+            m[:, :3] = m[:, :3] + m[:, 7:10]
+            a = zero + c
+            a[:, :3, :] = a[:, :3, :] + c[:, 7:10, :]
+            b = zero + a
+            b[:, :, :3] = b[:, :, :3] + a[:, :, 7:10]
+            c = b + q
+        mean[s], cov[s] = m, c
+    return mean, cov
+
+
+def test_n3_sums_bit_equal_to_the_plain_products():
+    """N3's two-stage sums equal `mean @ F.T` and `F @ C @ F.T + Q` in
+    float32 bit for bit, for step counts 1-6 mixed across streams (and 0,
+    which runs 1), on states with exact zeros as a new track has."""
+    rng = np.random.RandomState(14)
+    steps = np.array([3, 1, 6, 0, 2, 5, 4], np.int32)
+    s, t = len(steps), 8
+    mean = (rng.randn(s, t, 10) * 5).astype(np.float32)
+    a = rng.randn(s, t, 10, 10).astype(np.float32)
+    cov = (a @ a.transpose(0, 1, 3, 2) + 10 * np.eye(10)).astype(np.float32)
+    mean[:, ::2, 7:] = 0.0                          # new tracks
+    cov[:, ::2] = np.asarray(tdt._make_mats('cpu').p0)
+    mats = tdt._make_mats('cpu')
+    want_m, want_c = _n3_emulation(mean, cov, steps, mats.q.numpy())
+    got_m, got_c = tdt._kalman_predict_plain(_t(mean), _t(cov), _t(steps),
+                                             mats)
+    np.testing.assert_array_equal(got_m.numpy().view(np.int32),
+                                  want_m.view(np.int32))
+    np.testing.assert_array_equal(got_c.numpy().view(np.int32),
+                                  want_c.view(np.int32))
