@@ -3523,7 +3523,6 @@ def sync_free_paths(cfg, frames):
 def device_frame_phase(frames) -> dict:
     """Phase 18: the frame without host reads (N1 NMS, N2
     Jonker-Volgenant, N3 Kalman predict)."""
-    import collections as co
     from jmodt_torch import profile_step as ps
     t0 = time.perf_counter()
     dev = torch.device('cuda')
@@ -3584,15 +3583,8 @@ def device_frame_phase(frames) -> dict:
           'zeros: all equal to their plain versions', flush=True)
 
     # where a frame's time goes, as profile_step reads it
-    times = co.defaultdict(float)
-    run, stages = ps._joint(mcfg, times)
+    run = ps._joint(mcfg)
     run(frames[0])
-    torch.cuda.synchronize()
-    undo = stages()
-    try:
-        run(frames[1])
-    finally:
-        undo()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for f in frames:
@@ -3603,20 +3595,22 @@ def device_frame_phase(frames) -> dict:
     check(reads == 0 and syncs == 0, f'joint frame: {reads} tracker reads, '
           f'{syncs} synchronizing calls a frame at {sites}')
     prof = ps.device_time(run, frames)
+    spans = ps.span_table(prof['profile'], len(frames))
     print(f'[18 device frame] joint frame (Config(), MEGA_SA, bfloat16): '
           f'{wall:.3f} ms a frame (wall, {len(frames)} frames, '
           f'unsynchronized); profiled {prof["wall_ms"]:.3f} ms wall, '
           f'{prof["device_ms"]:.3f} ms device (union; sum '
           f'{prof["summed_ms"]:.3f}), idle share {prof["idle"]:.3f}; '
           f'synchronizing calls a frame {syncs:g} (by site: '
-          f'{sites or "none"}), tracker host reads {reads:g}; synchronized '
-          f'stages: detection {times["detection"]:.3f} ms, tracker '
-          f'{times["tracker"]:.3f} ms; proposal layer '
+          f'{sites or "none"}), tracker host reads {reads:g}; device ms '
+          f'launched in jmodt.detection {spans["jmodt.detection"][1]:.3f}, '
+          f'in jmodt.tracker {spans["jmodt.tracker"][1]:.3f}; proposal layer '
           f'{100 * share:.1f}% of a finetune step '
           f'({time.perf_counter() - t0:.1f} s)', flush=True)
     return dict(agg=agg, train_nms=train_agg, frame_ms=wall,
                 idle=prof['idle'], device_ms=prof['device_ms'],
-                syncs=syncs, share=share, tracker_ms=times['tracker'])
+                syncs=syncs, share=share,
+                tracker_ms=spans['jmodt.tracker'][1])
 
 
 def main(argv) -> int:

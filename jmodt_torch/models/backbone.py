@@ -14,6 +14,7 @@ from jmodt_torch.models.image_backbone import (BasicBlock, ImagePyramidFusion,
 from jmodt_torch.models.layers import (PointwiseLayer, compute_dtype, dense)
 from jmodt_torch.models.pointnet2 import FPModule, SAModuleMSG
 from jmodt_torch.parallel import mesh
+from jmodt_torch.utils.trace import span, spanned
 
 
 def backbone_out_channels(cfg: Config) -> int:
@@ -122,6 +123,7 @@ class PointNet2MSG(nn.Module):
                 li.IMG_FEATURES_CHANNEL // 4, li.IMG_FEATURES_CHANNEL,
                 li.IMG_FEATURES_CHANNEL, dtype=dtype, device=device)
 
+    @spanned('jmodt.backbone')
     def forward(self, pc, image=None, xy=None, train_step: bool = False):
         cfg = self.cfg
         n_sa = len(cfg.RPN.SA_CONFIG.NPOINTS)
@@ -137,17 +139,19 @@ class PointNet2MSG(nn.Module):
             # fused and whole-level eval paths where the cloud is small
             # (levels 1-3 at the default widths)
             small = self.use_xyz and l_xyz[k].shape[1] * sp <= 8192
-            li_xyz, li_feat, li_idx = getattr(self, f'sa_{k}')(
-                l_xyz[k], l_features[k], cfg.RPN.FUSED_SA and small,
-                cfg.RPN.MEGA_SA and small)
+            with span(f'jmodt.backbone.sa{k}'):
+                li_xyz, li_feat, li_idx = getattr(self, f'sa_{k}')(
+                    l_xyz[k], l_features[k], cfg.RPN.FUSED_SA and small,
+                    cfg.RPN.MEGA_SA and small)
             if use_fusion:
-                li_xy = torch.gather(mesh.gather_points(l_xy[k]) if part
-                                     else l_xy[k], 1,
-                                     li_idx.long()[:, :, None]
-                                     .expand(-1, -1, 2))
-                img = getattr(self, f'img_block_{k}')(img)
-                img_pts = feature_gather(img, li_xy)
-                li_feat = getattr(self, f'fusion_{k}')(li_feat, img_pts)
+                with span(f'jmodt.backbone.image{k}'):
+                    li_xy = torch.gather(mesh.gather_points(l_xy[k]) if part
+                                         else l_xy[k], 1,
+                                         li_idx.long()[:, :, None]
+                                         .expand(-1, -1, 2))
+                    img = getattr(self, f'img_block_{k}')(img)
+                    img_pts = feature_gather(img, li_xy)
+                    li_feat = getattr(self, f'fusion_{k}')(li_feat, img_pts)
                 l_xy.append(li_xy)
                 img_levels.append(img)
             l_xyz.append(li_xyz)
@@ -155,18 +159,22 @@ class PointNet2MSG(nn.Module):
 
         n_fp = len(cfg.RPN.FP_MLPS)
         for i in range(-1, -(n_fp + 1), -1):
-            l_features[i - 1] = getattr(self, f'fp_{n_fp + i}')(
-                l_xyz[i - 1], l_xyz[i], l_features[i - 1], l_features[i])
+            with span(f'jmodt.backbone.fp{n_fp + i}'):
+                l_features[i - 1] = getattr(self, f'fp_{n_fp + i}')(
+                    l_xyz[i - 1], l_xyz[i], l_features[i - 1], l_features[i])
 
         if use_fusion:
-            pyramid = self.img_pyramid
-            under_grad = torch.is_grad_enabled() and (
-                xy.requires_grad or any(t.requires_grad for t in img_levels)
-                or any(p.requires_grad for p in pyramid.parameters()))
-            if (cfg.LI_FUSION.FUSED_PYRAMID and not pyramid.training
-                    and not under_grad and not train_step and part is None):
-                img_pts = pyramid(img_levels, xy)
-            else:
-                img_pts = feature_gather(pyramid(img_levels), xy)
-            l_features[0] = self.final_fusion(l_features[0], img_pts)
+            with span('jmodt.backbone.pyramid'):
+                pyramid = self.img_pyramid
+                under_grad = torch.is_grad_enabled() and (
+                    xy.requires_grad
+                    or any(t.requires_grad for t in img_levels)
+                    or any(p.requires_grad for p in pyramid.parameters()))
+                if (cfg.LI_FUSION.FUSED_PYRAMID and not pyramid.training
+                        and not under_grad and not train_step
+                        and part is None):
+                    img_pts = pyramid(img_levels, xy)
+                else:
+                    img_pts = feature_gather(pyramid(img_levels), xy)
+                l_features[0] = self.final_fusion(l_features[0], img_pts)
         return l_xyz[0], l_features[0]

@@ -19,6 +19,7 @@ from jmodt_torch.models.point_rcnn import PointRCNN
 from jmodt_torch.ops.geometry import boxes3d_to_bev
 from jmodt_torch.ops.nms import nms_bev_batched
 from jmodt_torch.ops.rotated_iou import boxes_iou3d
+from jmodt_torch.utils.trace import span
 
 # ImageNet stats, applied in the step when it receives a raw uint8 image
 _IMG_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -44,51 +45,61 @@ def make_detection_step(cfg: Config, model: PointRCNN, device=None):
 
     @torch.no_grad()
     def step(pts, img, xy) -> Dict[str, torch.Tensor]:
-        pts = upload(pts, dev)
-        xy = upload(xy, dev)
-        if img is not None:
-            img = upload(img, dev)
-            if img.dtype == torch.uint8:
-                img = (img.float() / 255.0 - mean) / std
-        out = model(pts, img, xy)
-        b = pts.shape[0]
-        rois = out['rois']                                  # (B, M, 7)
-        rcnn_cls = out['rcnn_cls'].reshape(b, m)
-        rcnn_reg = out['rcnn_reg'].reshape(b, m, -1)
-        rcnn_feat = out['rcnn_feat'].reshape(b, m, -1)
-        if cfg.USE_IOU_BRANCH:
-            iou_branch = out['rcnn_iou_branch'].reshape(b, m)
-            rcnn_cls = torch.clamp(iou_branch, min=1e-4) * rcnn_cls
-
-        pred_boxes = decode_bbox_target(
-            rois.reshape(-1, 7), rcnn_reg.reshape(b * m, -1),
-            anchor_size=anchor,
-            loc_scope=cfg.RCNN.LOC_SCOPE,
-            loc_bin_size=cfg.RCNN.LOC_BIN_SIZE,
-            num_head_bin=cfg.RCNN.NUM_HEAD_BIN,
-            get_xz_fine=True, get_y_by_bin=cfg.RCNN.LOC_Y_BY_BIN,
-            loc_y_scope=cfg.RCNN.LOC_Y_SCOPE,
-            loc_y_bin_size=cfg.RCNN.LOC_Y_BIN_SIZE,
-            get_ry_fine=True, avg_by_bin=mc.BBOX_AVG_BY_BIN,
-            ry_with_bin=mc.RY_WITH_BIN).reshape(b, m, 7)
-
-        norm_scores = torch.sigmoid(rcnn_cls)
-        inds = (norm_scores > cfg.RCNN.SCORE_THRESH) & out['roi_mask']
-        keep_idx, keep = nms_bev_batched(
-            boxes3d_to_bev(pred_boxes), rcnn_cls, cfg.RCNN.NMS_THRESH,
-            max_keep=m, valid=inds, rotated=True)
-        k = keep_idx.long()
-        boxes, feats = (torch.gather(x, 1, k[..., None].expand(
-            -1, -1, x.shape[-1])) for x in (pred_boxes, rcnn_feat))
-        scores = torch.gather(norm_scores, 1, k)
-        packed = torch.cat([boxes, scores[..., None],
-                            keep.to(boxes.dtype)[..., None], feats], dim=-1)
-        return {'boxes': boxes, 'scores': scores, 'feats': feats,
-                'keep': keep, 'rois': rois, 'roi_mask': out['roi_mask'],
-                'pred_boxes_all': pred_boxes,
-                'seg_result': out['seg_result'], 'packed': packed}
+        with span('jmodt.upload'):
+            pts = upload(pts, dev)
+            xy = upload(xy, dev)
+            if img is not None:
+                img = upload(img, dev)
+                if img.dtype == torch.uint8:
+                    img = (img.float() / 255.0 - mean) / std
+        with span('jmodt.detection'):
+            out = model(pts, img, xy)
+            with span('jmodt.detection.decode'):
+                return _decode(cfg, mc, m, anchor, pts.shape[0], out)
 
     return step
+
+
+def _decode(cfg: Config, mc, m: int, anchor: torch.Tensor, b: int,
+            out) -> Dict[str, torch.Tensor]:
+    """The detection step's outputs from the eval forward's `out`: RCNN box
+    decode, sigmoid scoring, score threshold and the final rotated NMS of
+    the batch's b frames of m RoIs."""
+    rois = out['rois']                                      # (B, M, 7)
+    rcnn_cls = out['rcnn_cls'].reshape(b, m)
+    rcnn_reg = out['rcnn_reg'].reshape(b, m, -1)
+    rcnn_feat = out['rcnn_feat'].reshape(b, m, -1)
+    if cfg.USE_IOU_BRANCH:
+        iou_branch = out['rcnn_iou_branch'].reshape(b, m)
+        rcnn_cls = torch.clamp(iou_branch, min=1e-4) * rcnn_cls
+
+    pred_boxes = decode_bbox_target(
+        rois.reshape(-1, 7), rcnn_reg.reshape(b * m, -1),
+        anchor_size=anchor,
+        loc_scope=cfg.RCNN.LOC_SCOPE,
+        loc_bin_size=cfg.RCNN.LOC_BIN_SIZE,
+        num_head_bin=cfg.RCNN.NUM_HEAD_BIN,
+        get_xz_fine=True, get_y_by_bin=cfg.RCNN.LOC_Y_BY_BIN,
+        loc_y_scope=cfg.RCNN.LOC_Y_SCOPE,
+        loc_y_bin_size=cfg.RCNN.LOC_Y_BIN_SIZE,
+        get_ry_fine=True, avg_by_bin=mc.BBOX_AVG_BY_BIN,
+        ry_with_bin=mc.RY_WITH_BIN).reshape(b, m, 7)
+
+    norm_scores = torch.sigmoid(rcnn_cls)
+    inds = (norm_scores > cfg.RCNN.SCORE_THRESH) & out['roi_mask']
+    keep_idx, keep = nms_bev_batched(
+        boxes3d_to_bev(pred_boxes), rcnn_cls, cfg.RCNN.NMS_THRESH,
+        max_keep=m, valid=inds, rotated=True)
+    k = keep_idx.long()
+    boxes, feats = (torch.gather(x, 1, k[..., None].expand(
+        -1, -1, x.shape[-1])) for x in (pred_boxes, rcnn_feat))
+    scores = torch.gather(norm_scores, 1, k)
+    packed = torch.cat([boxes, scores[..., None],
+                        keep.to(boxes.dtype)[..., None], feats], dim=-1)
+    return {'boxes': boxes, 'scores': scores, 'feats': feats,
+            'keep': keep, 'rois': rois, 'roi_mask': out['roi_mask'],
+            'pred_boxes_all': pred_boxes,
+            'seg_result': out['seg_result'], 'packed': packed}
 
 
 RECALL_THRESH = (0.1, 0.3, 0.5, 0.7, 0.9)

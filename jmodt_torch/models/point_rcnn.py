@@ -53,6 +53,7 @@ from jmodt_torch.models.proposal import (RoiDraws, pool_rois_for_eval,
 from jmodt_torch.models.rcnn import RCNN
 from jmodt_torch.models.rpn import RPN
 from jmodt_torch.parallel import mesh
+from jmodt_torch.utils.trace import span, spanned
 
 
 class PointRCNN(nn.Module):
@@ -93,6 +94,7 @@ class PointRCNN(nn.Module):
         with torch.no_grad():
             return self._eval_forward(pts_input, img, pts_xy)
 
+    @spanned('jmodt.detection.proposal')
     def _proposals(self, out, rpn_scores_raw, rpn_reg):
         cfg = self.cfg
         backbone_xyz = out['backbone_xyz']
@@ -108,10 +110,12 @@ class PointRCNN(nn.Module):
         out = dict(self.rpn(pts_input, img, pts_xy))
         seg_mask, pts_depth, rois = self._proposals(
             out, out['rpn_cls'][:, :, 0], out['rpn_reg'])
-        pts_input_rcnn = pool_rois_for_eval(
-            self.cfg, out['backbone_xyz'], out['backbone_features'], seg_mask,
-            pts_depth, rois)
-        out.update(self.rcnn(pts_input_rcnn))
+        with span('jmodt.detection.roi_pool'):
+            pts_input_rcnn = pool_rois_for_eval(
+                self.cfg, out['backbone_xyz'], out['backbone_features'],
+                seg_mask, pts_depth, rois)
+        with span('jmodt.detection.rcnn'):
+            out.update(self.rcnn(pts_input_rcnn))
         return out
 
     def _train_forward(self, pts_input, img, pts_xy, gt_boxes3d, gt_tids,
@@ -133,19 +137,20 @@ class PointRCNN(nn.Module):
             seg_mask, pts_depth, rois = self._proposals(
                 out, out['rpn_cls'][:, :, 0].detach(),
                 out['rpn_reg'].detach())
-        if draws is None:
-            draws = sample_roi_draws(cfg, rois.shape[0], rois.shape[1],
-                                     device=rois.device)
-        if gt_tids is None:
-            gt_tids = torch.zeros(gt_boxes3d.shape[:2],
-                                  device=gt_boxes3d.device)
-        targets = proposal_target_layer(
-            cfg, draws, out['backbone_xyz'], features, seg_mask, pts_depth,
-            rois, gt_boxes3d, gt_tids)
-        pts_input_rcnn = (targets.pts_input.detach() if fixed      # :89
-                          else targets.pts_input)
-        out.update(self.rcnn(pts_input_rcnn, gt_tids=targets.gt_tids,
-                             generator=generator))
+        with span('jmodt.forward.rcnn'):
+            if draws is None:
+                draws = sample_roi_draws(cfg, rois.shape[0], rois.shape[1],
+                                         device=rois.device)
+            if gt_tids is None:
+                gt_tids = torch.zeros(gt_boxes3d.shape[:2],
+                                      device=gt_boxes3d.device)
+            targets = proposal_target_layer(
+                cfg, draws, out['backbone_xyz'], features, seg_mask,
+                pts_depth, rois, gt_boxes3d, gt_tids)
+            pts_input_rcnn = (targets.pts_input.detach() if fixed  # :89
+                              else targets.pts_input)
+            out.update(self.rcnn(pts_input_rcnn, gt_tids=targets.gt_tids,
+                                 generator=generator))
         out['targets'] = targets
         return out
 

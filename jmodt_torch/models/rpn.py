@@ -10,6 +10,7 @@ from torch import nn
 from jmodt_torch.config import Config
 from jmodt_torch.models.backbone import PointNet2MSG, backbone_out_channels
 from jmodt_torch.models.layers import HeadMLP, compute_dtype
+from jmodt_torch.utils.trace import span
 
 
 def rpn_reg_channels(cfg: Config) -> int:
@@ -42,6 +43,7 @@ class RPN(nn.Module):
     def forward(self, pts_input, img=None, pts_xy=None, generator=None,
                 train_step: bool = False):
         xyz, feats = self.backbone(pts_input, img, pts_xy, train_step)
-        return {'rpn_cls': self.cls_head(feats, generator),
-                'rpn_reg': self.reg_head(feats, generator),
-                'backbone_xyz': xyz, 'backbone_features': feats}
+        with span('jmodt.detection.rpn_heads'):
+            return {'rpn_cls': self.cls_head(feats, generator),
+                    'rpn_reg': self.reg_head(feats, generator),
+                    'backbone_xyz': xyz, 'backbone_features': feats}

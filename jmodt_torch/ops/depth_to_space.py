@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 
 from jmodt_torch.ops import kernels
+from jmodt_torch.utils.trace import spanned
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -93,6 +94,7 @@ class DepthToSpace(torch.autograd.Function):
         return g_taps, g_bias, None, None, None, None
 
 
+@spanned('jmodt.kernel.depth_to_space')
 def depth_to_space(taps: torch.Tensor, k: int, r: int, h0: int, w0: int,
                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, h0*w0, k*k*r) tap-major table -> (B, h0*k*w0*k, r) full-res map,

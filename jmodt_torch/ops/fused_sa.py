@@ -27,6 +27,7 @@ import torch
 
 from jmodt_torch.ops import kernels
 from jmodt_torch.ops.grouping import group_points_fl
+from jmodt_torch.utils.trace import spanned
 
 _BN_EPS = 1e-5
 # K4 (grouped_mlp.cuh) works on 64-row blocks (centres x samples), 4 MLP
@@ -144,6 +145,7 @@ def check_weight_aligned(name: str, w: torch.Tensor) -> None:
         raise ValueError(f'{name}: K4 needs 16-byte aligned weights')
 
 
+@spanned('jmodt.kernel.grouped_gather_mlp_max')
 def grouped_gather_mlp_max(feats1: torch.Tensor, idx: torch.Tensor,
                            cxw: torch.Tensor, b1: torch.Tensor,
                            layers: Layers) -> torch.Tensor:

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from jmodt_torch.ops import kernels
+from jmodt_torch.utils.trace import spanned
 
 _PLAIN_CHUNK = 4096   # queries per block of the plain version
 # K3's launch plan: threads the grid should hold to fill an H100 (132 SMs,
@@ -91,6 +92,7 @@ def three_nn_plain(unknown: torch.Tensor, known: torch.Tensor):
     return torch.sqrt(torch.cat(ds, 1)), torch.cat(ids, 1)
 
 
+@spanned('jmodt.kernel.three_nn')
 def three_nn(unknown: torch.Tensor, known: torch.Tensor):
     """3 nearest known points of each unknown point: (B, N, 3), (B, M, 3)
     -> (dist (B, N, 3), idx (B, N, 3) int32).  CPU tensors take the plain

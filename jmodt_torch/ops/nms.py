@@ -21,6 +21,7 @@ import torch
 
 from jmodt_torch.ops import kernels
 from jmodt_torch.ops.rotated_iou import boxes_iou_bev, boxes_iou_normal
+from jmodt_torch.utils.trace import spanned
 
 TILE = 64                  # N1: boxes a tile, bits a mask word
 MAX_WORDS = 32 * 16        # N1's scan holds 16 mask words a lane
@@ -46,6 +47,7 @@ def nms_bev(boxes: torch.Tensor, scores: torch.Tensor, thresh: float,
     return keep_idx[0], keep_mask[0]
 
 
+@spanned('jmodt.kernel.nms')
 def nms_bev_batched(boxes: torch.Tensor, scores: torch.Tensor,
                     thresh: float, max_keep: int,
                     valid: torch.Tensor | None = None, rotated: bool = True):

@@ -34,6 +34,7 @@ from jmodt_torch.ops.grouping import ball_query_multi
 from jmodt_torch.ops.sampling import (FPS_MAX_CLUSTER,
                                       farthest_point_sample_plain,
                                       fps_launch_plan, gather_xyz)
+from jmodt_torch.utils.trace import spanned
 
 # limits of the CUDA entry (sa_level.cu): scales, layers per scale, the
 # 64-row MLP tiles of grouped_mlp.cuh, 32 x 32 table tiles, 8 query warps a
@@ -190,6 +191,7 @@ def k5_launch_plan(b: int, n: int, npoint: int, nsamples: Sequence[int],
                   tuple(smem), 2 + b * chunks)
 
 
+@spanned('jmodt.kernel.sa_level')
 def sa_level_fused(xyz: torch.Tensor, feats: Optional[torch.Tensor],
                    npoint: int, radii: Sequence[float],
                    nsamples: Sequence[int],

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from jmodt_torch.ops import kernels
+from jmodt_torch.utils.trace import spanned
 
 # K1 keeps each point in one thread's registers (fps.cuh): a block takes
 # up to 1024 points, with 128 threads while that is 8 points a thread or
@@ -107,6 +108,7 @@ def fps_batched_launch_plan(b: int, n: int):
     return warps, K2_BLOCK_WARPS // warps, ppt
 
 
+@spanned('jmodt.kernel.fps')
 def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """Iterative farthest point sampling, (B, N, 3) f32 -> (B, npoint)
     int32.  CPU tensors take the plain version; CUDA tensors the kernel."""

@@ -31,8 +31,10 @@ from jmodt_torch.models.point_rcnn import PointRCNN
 from jmodt_torch.tracking.device_tracker import (init_state,
                                                  make_batched_tracker_step,
                                                  make_device_tracker_step)
+from jmodt_torch.utils.trace import span, spanned
 
 
+@spanned('jmodt.top_k')
 def _top_k(det, track_k: int, det_score_thresh: float):
     """The tracker's inputs from a detection step's output, per frame of
     the batch: the `track_k` best kept detections, (boxes (B, K, 7),
@@ -48,6 +50,7 @@ def _top_k(det, track_k: int, det_score_thresh: float):
     return boxes, det_scores, feats, det_scores > det_score_thresh
 
 
+@spanned('jmodt.pack')
 def _pack(out) -> torch.Tensor:
     """Rows [tid, x, y, z, h, w, l, ry, score, emit] of a tracker output."""
     return torch.cat([out['tid'].float()[..., None], out['box'],
@@ -75,11 +78,13 @@ def make_joint_step(cfg: Config, model: PointRCNN, link_head: nn.Module,
 
     @torch.no_grad()
     def joint(state, frame_id, pts, img, xy):
-        det = det_step(pts, img, xy)
-        boxes, scores, feats, mask = _top_k(det, track_k, det_score_thresh)
-        state, out = trk_step(state, frame_id, boxes[0], scores[0],
-                              feats[0], mask[0])
-        return state, _pack(out)
+        with span('jmodt.joint'):
+            det = det_step(pts, img, xy)
+            boxes, scores, feats, mask = _top_k(det, track_k,
+                                                det_score_thresh)
+            state, out = trk_step(state, frame_id, boxes[0], scores[0],
+                                  feats[0], mask[0])
+            return state, _pack(out)
 
     return joint
 
@@ -117,10 +122,11 @@ def make_batched_joint_step(cfg: Config, model: PointRCNN,
 
     @torch.no_grad()
     def joint(states, frame_ids, pts, imgs, xys):
-        det = det_step(pts, imgs, xys)
-        states, out = trk_step(states, frame_ids,
-                               *_top_k(det, track_k, det_score_thresh))
-        return states, _pack(out)
+        with span('jmodt.joint'):
+            det = det_step(pts, imgs, xys)
+            states, out = trk_step(states, frame_ids,
+                                   *_top_k(det, track_k, det_score_thresh))
+            return states, _pack(out)
 
     return joint
 
@@ -131,9 +137,11 @@ def _split_joint_step(cfg, model, link_head, track_k, det_score_thresh,
 
     The parts run one after another from the calling thread, so the split
     spreads the streams' memory and weights over the devices but not their
-    time: each part's step is host-bound and reads back to the host at
-    every NMS round.  A host thread a part was slower still, on one card
-    and on two: running the parts at once needs a process a device."""
+    time: each part's step is host-bound (it reads nothing back, but the
+    host launches its kernels one by one), so a part's launches start only
+    when the host has made the last part's.  A host thread a part was
+    slower still, on one card and on two: running the parts at once needs
+    a process a device."""
     devs = [resolve_device(d) for d in devices]
     parts = []
     for dev in devs:

@@ -17,11 +17,6 @@ default Config().  `--set` overrides config keys
 True`) and takes the rest of the line.  Synthetic frames; one warm-up
 frame first.  Prints:
 
-* stages: wall ms of each stage of one frame, with the device synchronized
-  at every stage boundary (the syncs remove overlap, so the stages add up
-  to a little more than an unsynchronized frame).  Joint and batched:
-  detection, top-K and packing, tracker; detection: the backbone's and
-  heads' modules, proposals, RoI pooling and the final NMS;
 * host syncs per frame: every synchronizing CUDA call of the frame (torch's
   sync debug mode), in all and by call site (the file:line whose call
   synchronized), and, joint and batched, the tracker's own device-to-host
@@ -31,6 +26,13 @@ frame first.  Prints:
   union of the kernels' intervals (kernels that overlap, as K5's two
   grids do, count once) beside the sum of their durations, and the
   device's idle share by the union (and by the sum);
+* spans: each of the port's `jmodt.` spans (`utils/trace.py`) in those
+  profiled frames, with its calls a frame, the device ms a frame of the
+  operations launched inside it (all of them, and those whose innermost
+  span it is) and the device's idle ms a frame while it was the innermost
+  span open on the host; the innermost columns add up, with '(none)', to
+  the frames' summed device time and their idle between device
+  operations;
 * the kernels with the most device time per frame, and the host ops with
   the most CPU time;
 * deconvs: wall ms per frame with each NonOverlapDeconv computed as the
@@ -41,8 +43,13 @@ frame first.  Prints:
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import dataclasses
+import json
+import math
+import os
+import tempfile
 import time
 import warnings
 
@@ -62,77 +69,19 @@ def union_length(spans) -> float:
     return total
 
 
-def _stage_hooks(model, times):
-    """Forward hooks that time each top-level stage with device syncs."""
-    names = {}
-    for name, mod in model.named_modules():
-        parts = name.split('.')
-        if (len(parts) == 3 and parts[:2] == ['rpn', 'backbone']) or \
-                name in ('rpn.cls_head', 'rpn.reg_head') or \
-                (len(parts) == 2 and parts[0] == 'rcnn'):
-            names[mod] = name
-    start = {}
-
-    def pre(mod, _args):
-        torch.cuda.synchronize()
-        start[mod] = time.perf_counter()
-
-    def post(mod, _args, _out):
-        torch.cuda.synchronize()
-        times[names[mod]] += (time.perf_counter() - start[mod]) * 1e3
-
-    return [h for mod in names for h in (mod.register_forward_pre_hook(pre),
-                                         mod.register_forward_hook(post))]
-
-
-def _timed(fn, times, name):
-    def wrapped(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
-        times[name] += (time.perf_counter() - t0) * 1e3
-        return out
-    return wrapped
-
-
-def _detection(cfg, times):
-    """(run(frame), stage setup -> undo) for the detection step."""
-    from jmodt_torch.models import inference, point_rcnn
+def _detection(cfg):
+    """run(frame) of the detection step."""
     from jmodt_torch.models.inference import make_detection_step
     from jmodt_torch.models.point_rcnn import build_detector
 
-    model = build_detector(cfg, seed=0)
-    step = make_detection_step(cfg, model)
-
-    def run(f):
-        return step(f['pts_input'], f['img'], f['pts_xy'])
-
-    def stages():
-        hooks = _stage_hooks(model, times)
-        saved = (point_rcnn.proposal_layer, point_rcnn.pool_rois_for_eval,
-                 inference.nms_bev_batched)
-        point_rcnn.proposal_layer = _timed(saved[0], times, 'proposal_layer')
-        point_rcnn.pool_rois_for_eval = _timed(saved[1], times,
-                                               'pool_rois_for_eval')
-        inference.nms_bev_batched = _timed(saved[2], times, 'final nms')
-
-        def undo():
-            for h in hooks:
-                h.remove()
-            (point_rcnn.proposal_layer, point_rcnn.pool_rois_for_eval,
-             inference.nms_bev_batched) = saved
-        return undo
-
-    return run, stages
+    step = make_detection_step(cfg, build_detector(cfg, seed=0))
+    return lambda f: step(f['pts_input'], f['img'], f['pts_xy'])
 
 
-def _joint(cfg, times, streams=None):
-    """(run(frame), stage setup -> undo) for the joint step, or with
-    `streams` the lockstep step over that many streams, which numbers the
-    frames 1, 2, ... as they come.  The step is built twice, plain and with
-    synchronized timers around its detection and tracker steps (the rest of
-    a frame is top-K and packing)."""
+def _joint(cfg, streams=None):
+    """run(frame) of the joint step, or with `streams` the lockstep step
+    over that many streams, which numbers the frames 1, 2, ... as they
+    come."""
     from jmodt_torch import pipeline
     from jmodt_torch.models.point_rcnn import build_detector, init_weights
     from jmodt_torch.models.rcnn import CorrelationHead
@@ -145,41 +94,21 @@ def _joint(cfg, times, streams=None):
     init_weights(head, 1)
     kw = dict(track_k=16, det_score_thresh=0.2, assign='hungarian')
     if streams is None:
-        make, trk = pipeline.make_joint_step, 'make_device_tracker_step'
+        joint = pipeline.make_joint_step(cfg, model, head, **kw)
         state = [init_state(64, feat_dim), 0]   # tracker state, frame id
     else:
-        make, trk = pipeline.make_batched_joint_step, \
-            'make_batched_tracker_step'
+        joint = pipeline.make_batched_joint_step(cfg, model, head, **kw)
         state = [init_batched_state(streams, 64, feat_dim), 0]
-    joint = make(cfg, model, head, **kw)
-    saved = (pipeline.make_detection_step, getattr(pipeline, trk))
-    pipeline.make_detection_step = \
-        lambda *a, **k: _timed(saved[0](*a, **k), times, 'detection')
-    setattr(pipeline, trk,
-            lambda *a, **k: _timed(saved[1](*a, **k), times, 'tracker'))
-    try:
-        timed_joint = make(cfg, model, head, **kw)
-    finally:
-        pipeline.make_detection_step = saved[0]
-        setattr(pipeline, trk, saved[1])
-    use = [joint]
 
     def run(f):
         state[1] += 1
         fid = (state[1] if streams is None
                else np.full(streams, state[1], np.int32))
-        state[0], packed = use[0](state[0], fid, f['pts_input'], f['img'],
-                                  f['pts_xy'])
+        state[0], packed = joint(state[0], fid, f['pts_input'], f['img'],
+                                 f['pts_xy'])
         return packed
 
-    def stages():
-        use[0] = timed_joint
-
-        def undo():
-            use[0] = joint
-        return undo
-
-    return run, stages
+    return run
 
 
 def sync_sites(run, n_frames: int):
@@ -232,15 +161,100 @@ def device_time(run, frames) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / len(frames)
     cuda = torch.autograd.DeviceType.CUDA
-    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+
+    def on_device(e):     # the spans' device-side ranges are no device work
+        return e.device_type == cuda and not e.is_user_annotation
+
+    kern = [e for e in prof.key_averages() if on_device(e)]
     summed = sum(e.self_device_time_total for e in kern) / 1e3 / len(frames)
     dev = union_length((e.time_range.start, e.time_range.end)
                        for e in prof.events()
-                       if e.device_type == cuda) / 1e3 / len(frames)
+                       if on_device(e)) / 1e3 / len(frames)
     return dict(wall_ms=wall, device_ms=dev, summed_ms=summed,
                 idle=max(0.0, 1 - dev / wall),
                 idle_by_sum=max(0.0, 1 - summed / wall), kernels=kern,
                 profile=prof)
+
+
+def _innermost(spans, times):
+    """The index into `spans` ((start, end, name), in start order) of the
+    innermost span open at each of the ascending `times`, -1 for none."""
+    marks = sorted([(a, 1, i) for i, (a, _, _) in enumerate(spans)]
+                   + [(b, 0, i) for i, (_, b, _) in enumerate(spans)])
+    out, active, m = [], [], 0
+    for t in times:
+        while m < len(marks) and marks[m][0] <= t:
+            _, opens, i = marks[m]
+            if opens:
+                active.append(i)
+            else:
+                active.remove(i)
+            m += 1
+        out.append(max(active, key=lambda j: (spans[j][0], -spans[j][1]))
+                   if active else -1)
+    return out
+
+
+def span_table(profile, n_frames: int) -> dict:
+    """{span name: (calls, device ms inside, device ms as innermost, idle
+    ms as innermost)}, each a frame, of the port's `jmodt.` spans in a
+    profile taken by `device_time`, '(none)' for what no span holds.  A
+    device operation belongs to the spans open on the host when its
+    launch call ran (matched by correlation id, whatever the thread); an
+    idle instant between two device operations to the innermost span
+    open then, so a gap may split between spans."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'trace.json')
+        profile.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)['traceEvents']
+                      if e.get('ph') == 'X' and 'dur' in e]
+    spans = sorted((e['ts'], e['ts'] + e['dur'], e['name']) for e in events
+                   if e.get('cat') == 'user_annotation'
+                   and e['name'].startswith('jmodt.'))
+    launch = {e['args']['correlation']: e['ts'] for e in events
+              if e.get('cat') == 'cuda_runtime'
+              and 'correlation' in e.get('args', {})}
+    ops = sorted((launch[e['args']['correlation']], e['dur']) for e in events
+                 if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')
+                 and e.get('args', {}).get('correlation') in launch)
+    names = sorted({n for _, _, n in spans}) + ['(none)']
+    rows = {n: [0.0, 0.0, 0.0, 0.0] for n in names}
+    for _, _, n in spans:
+        rows[n][0] += 1
+    for name in names[:-1]:
+        # a name's spans do not overlap: the last one to start before t
+        starts = [a for a, _, n in spans if n == name]
+        ends = [b for _, b, n in spans if n == name]
+        rows[name][1] = sum(d for t, d in ops if (
+            (k := bisect.bisect_right(starts, t) - 1) >= 0 and t <= ends[k]))
+    for (_, d), k in zip(ops, _innermost(spans, [t for t, _ in ops])):
+        rows['(none)' if k < 0 else spans[k][2]][2] += d
+    # idle: the gaps between device operations.  The device's clock can
+    # drift from the host's in a session, so a gap is placed on the host's
+    # clock by the least launch-to-start lag of the 16 gaps on either side
+    # (an idle device starts a launch within microseconds)
+    busy = sorted((e['ts'], e['ts'] + e['dur'],
+                   launch.get(e.get('args', {}).get('correlation')))
+                  for e in events
+                  if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'))
+    gaps, reach = [], None
+    for a, b, t in busy:
+        if reach is not None and a > reach:
+            gaps.append((reach, a, math.inf if t is None else a - t))
+        reach = b if reach is None else max(reach, b)
+    marks = sorted({t for s in spans for t in s[:2]})
+    cuts = []
+    for i, (a, b, _) in enumerate(gaps):
+        off = min(g[2] for g in gaps[max(0, i - 16):i + 17])
+        a, b = (a - off, b - off) if off < math.inf else (a, b)
+        inner = marks[bisect.bisect_right(marks, a):
+                      bisect.bisect_left(marks, b)]
+        cuts += list(zip([a] + inner, inner + [b]))
+    for (a, b), k in zip(cuts, _innermost(spans, [a for a, _ in cuts])):
+        rows['(none)' if k < 0 else spans[k][2]][3] += b - a
+    return {n: (r[0] / n_frames, *(x / 1e3 / n_frames for x in r[1:]))
+            for n, r in rows.items()}
 
 
 def _compare_deconv(run, frames):
@@ -305,33 +319,11 @@ def main() -> None:
               for s in range(per)]
         frames.append({k: np.concatenate([f[k] for f in fs])
                        for k in ('pts_input', 'img', 'pts_xy')})
-    times = collections.defaultdict(float)
-    if args.path == 'detection':
-        run, stages = _detection(cfg, times)
-    else:
-        run, stages = _joint(cfg, times, streams)
-
+    run = _detection(cfg) if args.path == 'detection' else _joint(cfg,
+                                                                 streams)
     run(frames[0])                                       # warm-up
     torch.cuda.synchronize()
-
-    # stages of one frame, synchronized at each boundary
-    undo = stages()
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(frames[1])
-        torch.cuda.synchronize()
-        total = (time.perf_counter() - t0) * 1e3
-    finally:
-        undo()
-    rest = ('(rest: decode, scoring, glue)' if args.path == 'detection'
-            else '(rest: top-K, packing)')
     what = args.path + (f', {streams} streams' if streams else '')
-    print(f'stages of one synchronized {what} frame ({args.dtype}), ms:')
-    for name, ms in sorted(times.items(), key=lambda kv: -kv[1]):
-        print(f'  {name:32s} {ms:9.3f}')
-    print(f'  {rest:32s} {total - sum(times.values()):9.3f}')
-    print(f'  {"total":32s} {total:9.3f}')
 
     trk, allsync, sites = _host_syncs(run, frames[1:])
     print(f'host syncs per frame: tracker {trk:.1f} (device-to-host '
@@ -349,6 +341,14 @@ def main() -> None:
     if streams:
         print(f'stream-frame: {wall / streams:.3f} ms wall, '
               f'{dev / streams:.3f} ms of device time ({streams} streams)')
+    print(f'spans of a profiled {what} frame ({args.dtype}): calls, '
+          'device ms of the ops launched inside / as the innermost span, '
+          'idle ms as the innermost span:')
+    for name, (calls, inside, own, idle) in sorted(
+            span_table(prof['profile'], args.frames).items(),
+            key=lambda kv: -kv[1][1]):
+        print(f'  {name:36s} {calls:5.1f} {inside:9.3f} {own:9.3f} '
+              f'{idle:9.3f}')
     print('kernels by device time per frame, ms:')
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:20]:
         print(f'  {e.self_device_time_total / 1e3 / args.frames:9.3f}  '

@@ -50,6 +50,7 @@ from jmodt_torch.models.rcnn import masked_bidirectional_softmax
 from jmodt_torch.ops import kernels
 from jmodt_torch.ops.geometry import boxes_center_dist_affinity
 from jmodt_torch.ops.rotated_iou import boxes_iou3d
+from jmodt_torch.utils.trace import span, spanned
 
 _DIM_X = 10   # [x, y, z, h, w, l, ry, vx, vy, vz]
 _DIM_Z = 7    # [x, y, z, h, w, l, ry]
@@ -136,6 +137,7 @@ def _set_col(x: torch.Tensor, col: int, val: torch.Tensor) -> torch.Tensor:
     return x
 
 
+@spanned('jmodt.kernel.kalman_predict')
 def _kalman_predict(mean, cov, steps: torch.Tensor, mats: KalmanMats):
     """Advance the slots of each stream max(`steps`, 1) constant-velocity
     steps.  mean (..., T, 10), cov (..., T, 10, 10), steps an int tensor
@@ -269,6 +271,7 @@ def _jonker_volgenant(aff: torch.Tensor, match_thresh: float):
     return torch.where(keep_t, t2d, -1), torch.where(keep_d, d2t, -1)
 
 
+@spanned('jmodt.kernel.lap')
 def _lap_assign(affinity: torch.Tensor, match_thresh: float):
     """Exact max-weight bipartite matching, Jonker-Volgenant shortest
     augmenting paths, one augmentation per detection.
@@ -432,6 +435,7 @@ def make_batched_tracker_step(link_head: nn.Module, t_miss: int = 2,
         se_head.to(dev).eval()
     assign_fn = _lap_assign if assign == 'hungarian' else _greedy_assign
 
+    @spanned('jmodt.tracker')
     @torch.no_grad()
     def step(state: TrackerState, frame_id, det_boxes, det_scores,
              det_feats, det_mask):
@@ -442,121 +446,132 @@ def make_batched_tracker_step(link_head: nn.Module, t_miss: int = 2,
         det_mask = upload(det_mask, dev, torch.bool)
         n_seq, tcap = state.tid.shape
         ndet = det_boxes.shape[1]
-        active = state.tid > 0                                    # (S, T)
-        any_det = det_mask.any(-1)                                # (S,)
-        passed = torch.where(any_det, frame_id - state.last_frame_idx, 0)
-        frame_count = state.frame_count + passed
-        last_frame_idx = torch.where(any_det, frame_id,
-                                     state.last_frame_idx)
 
-        # ---- predict (misses += passed) ----
-        do_predict = any_det & active.any(-1)
-        pm, pc = _kalman_predict(state.mean, state.cov,
-                                 torch.where(do_predict, passed, 1),
-                                 state.mats)
-        upd = do_predict[:, None] & active
-        mean = torch.where(upd[..., None], pm, state.mean)
-        cov = torch.where(upd[..., None, None], pc, state.cov)
-        misses = torch.where(any_det[:, None] & active,
-                             state.misses + passed[:, None], state.misses)
+        with span('jmodt.tracker.predict'):        # misses += passed
+            active = state.tid > 0                                # (S, T)
+            any_det = det_mask.any(-1)                            # (S,)
+            passed = torch.where(any_det, frame_id - state.last_frame_idx,
+                                 0)
+            frame_count = state.frame_count + passed
+            last_frame_idx = torch.where(any_det, frame_id,
+                                         state.last_frame_idx)
+            do_predict = any_det & active.any(-1)
+            pm, pc = _kalman_predict(state.mean, state.cov,
+                                     torch.where(do_predict, passed, 1),
+                                     state.mats)
+            upd = do_predict[:, None] & active
+            mean = torch.where(upd[..., None], pm, state.mean)
+            cov = torch.where(upd[..., None, None], pc, state.cov)
+            misses = torch.where(any_det[:, None] & active,
+                                 state.misses + passed[:, None],
+                                 state.misses)
 
-        # ---- affinity ----
-        pred_boxes = mean[..., :7]
-        cor = (state.feat[:, :, None, :] - det_feats[:, None, :, :]).abs()
-        link_raw = link_head(cor)[..., 0]                         # (S, T, D)
-        link = masked_bidirectional_softmax(link_raw, active, det_mask)
-        iou = boxes_iou3d(pred_boxes, det_boxes)
-        dis = boxes_center_dist_affinity(pred_boxes, det_boxes)
-        pair_ok = active[..., :, None] & det_mask[..., None, :]
-        combined = torch.where(pair_ok, link * w_app + iou * w_iou
-                               + dis * w_dis, -math.inf)
+        with span('jmodt.tracker.affinity'):
+            pred_boxes = mean[..., :7]
+            cor = (state.feat[:, :, None, :]
+                   - det_feats[:, None, :, :]).abs()
+            link_raw = link_head(cor)[..., 0]                     # (S, T, D)
+            link = masked_bidirectional_softmax(link_raw, active, det_mask)
+            iou = boxes_iou3d(pred_boxes, det_boxes)
+            dis = boxes_center_dist_affinity(pred_boxes, det_boxes)
+            pair_ok = active[..., :, None] & det_mask[..., None, :]
+            combined = torch.where(pair_ok, link * w_app + iou * w_iou
+                                   + dis * w_dis, -math.inf)
 
-        had_active = active.any(-1, keepdim=True)                 # (S, 1)
-        if assign == 'mip':
-            # start / end features: masked means of cor over tracks / dets
-            pw = active.to(cor.dtype)
-            dw = det_mask.to(cor.dtype)
-            start_feat = ((cor * pw[..., None, None]).sum(1)
-                          / torch.clamp(pw.sum(-1), min=1.0)[:, None, None])
-            end_feat = ((cor * dw[:, None, :, None]).sum(2)
-                        / torch.clamp(dw.sum(-1), min=1.0)[:, None, None])
-            start = torch.sigmoid(se_head(start_feat)[..., 0])    # (S, D)
-            end = torch.sigmoid(se_head(end_feat)[..., 0])        # (S, T)
-            t2d, d2t, live_new = mip_assign(
-                combined, state.score, det_scores, start, end, active,
-                det_mask, w_cls, w_se)
-            # with no live track every det is born live
-            tentative_new = had_active & ~live_new
-        else:
-            t2d, d2t = assign_fn(combined, match_thresh)
-            tentative_new = had_active & (det_scores <= score_thresh)
-        matched_t = t2d >= 0
-        safe_t2d = torch.where(matched_t, t2d, 0)
-        sel = safe_t2d.long()
+        with span('jmodt.tracker.assign'):
+            had_active = active.any(-1, keepdim=True)             # (S, 1)
+            if assign == 'mip':
+                # start / end features: masked means of cor over tracks /
+                # dets
+                pw = active.to(cor.dtype)
+                dw = det_mask.to(cor.dtype)
+                start_feat = ((cor * pw[..., None, None]).sum(1)
+                              / torch.clamp(pw.sum(-1), min=1.0)[:, None,
+                                                                 None])
+                end_feat = ((cor * dw[:, None, :, None]).sum(2)
+                            / torch.clamp(dw.sum(-1), min=1.0)[:, None,
+                                                               None])
+                start = torch.sigmoid(se_head(start_feat)[..., 0])  # (S, D)
+                end = torch.sigmoid(se_head(end_feat)[..., 0])      # (S, T)
+                t2d, d2t, live_new = mip_assign(
+                    combined, state.score, det_scores, start, end, active,
+                    det_mask, w_cls, w_se)
+                # with no live track every det is born live
+                tentative_new = had_active & ~live_new
+            else:
+                t2d, d2t = assign_fn(combined, match_thresh)
+                tentative_new = had_active & (det_scores <= score_thresh)
 
-        def take(x):       # x (S, D, ...) -> its row sel[s, t] per slot
-            return torch.gather(x, 1, sel.reshape(*sel.shape, *[1] * (
-                x.dim() - 2)).expand(-1, -1, *x.shape[2:]))
+        with span('jmodt.tracker.update'):         # the matched tracks
+            matched_t = t2d >= 0
+            safe_t2d = torch.where(matched_t, t2d, 0)
+            sel = safe_t2d.long()
 
-        # ---- update the matched tracks ----
-        mean, cov = _kalman_update(mean, cov, take(det_boxes), matched_t,
-                                   state.mats)
-        feat = torch.where(matched_t[..., None], take(det_feats), state.feat)
-        score = torch.where(matched_t, take(det_scores), state.score)
-        misses = torch.where(matched_t, 0, misses)
-        hits = torch.where(matched_t, state.hits + 1, state.hits)
-        det_idx = torch.where(matched_t, safe_t2d, -1)
+            def take(x):   # x (S, D, ...) -> its row sel[s, t] per slot
+                return torch.gather(x, 1, sel.reshape(*sel.shape, *[1] * (
+                    x.dim() - 2)).expand(-1, -1, *x.shape[2:]))
 
-        # ---- prune the dead before births, to free their slots ----
-        tid = torch.where(active & (misses >= t_miss), 0, state.tid)
+            mean, cov = _kalman_update(mean, cov, take(det_boxes), matched_t,
+                                       state.mats)
+            feat = torch.where(matched_t[..., None], take(det_feats),
+                               state.feat)
+            score = torch.where(matched_t, take(det_scores), state.score)
+            misses = torch.where(matched_t, 0, misses)
+            hits = torch.where(matched_t, state.hits + 1, state.hits)
+            det_idx = torch.where(matched_t, safe_t2d, -1)
 
-        # ---- births: unmatched dets, live ones first (in det order),
-        # then tentative ones (misses 1), into the free slots in order ----
-        i32 = torch.int32
-        is_new = det_mask & (d2t < 0)
-        live_b = is_new & ~tentative_new
-        tent_b = is_new & tentative_new
-        rank_live = torch.cumsum(live_b.to(i32), -1, dtype=i32) - 1
-        rank_tent = (live_b.sum(-1, keepdim=True, dtype=i32)
-                     + torch.cumsum(tent_b.to(i32), -1, dtype=i32) - 1)
-        new_rank = torch.where(live_b, rank_live, rank_tent)      # (S, D)
-        free = tid == 0
-        free_rank = torch.cumsum(free.to(i32), -1, dtype=i32) - 1  # (S, T)
-        # slot_of_rank[s, r] = the r-th free slot of stream s
-        slot_of_rank = _scatter_drop(
-            torch.full((n_seq, tcap), tcap, dtype=i32, device=dev),
-            torch.where(free, free_rank, tcap),
-            torch.arange(tcap, dtype=i32, device=dev).expand(n_seq, -1))
-        born = is_new & (new_rank < free.sum(-1, keepdim=True, dtype=i32))
-        dst = torch.where(born, torch.gather(
-            slot_of_rank, 1, new_rank.clamp(0, tcap - 1).long()), tcap)
+        with span('jmodt.tracker.births'):
+            # prune the dead before births, to free their slots
+            tid = torch.where(active & (misses >= t_miss), 0, state.tid)
 
-        init_mean = torch.zeros((n_seq, ndet, _DIM_X), device=dev)
-        init_mean[..., :7] = det_boxes
-        mean = _scatter_drop(mean, dst, init_mean)
-        cov = _scatter_drop(cov, dst, state.mats.p0.expand(
-            n_seq, ndet, _DIM_X, _DIM_X))
-        feat = _scatter_drop(feat, dst, det_feats)
-        score = _scatter_drop(score, dst, det_scores)
-        misses = _scatter_drop(misses, dst, tentative_new.to(i32).expand(
-            n_seq, ndet))
-        hits = _scatter_drop(hits, dst, torch.zeros((n_seq, ndet), dtype=i32,
-                                                    device=dev))
-        det_idx = _scatter_drop(det_idx, dst, torch.arange(
-            ndet, dtype=i32, device=dev).expand(n_seq, -1))
-        tid = _scatter_drop(tid, dst, state.next_id[:, None] + new_rank)
-        next_id = state.next_id + born.sum(-1, dtype=i32)
+            # births: unmatched dets, live ones first (in det order), then
+            # tentative ones (misses 1), into the free slots in order
+            i32 = torch.int32
+            is_new = det_mask & (d2t < 0)
+            live_b = is_new & ~tentative_new
+            tent_b = is_new & tentative_new
+            rank_live = torch.cumsum(live_b.to(i32), -1, dtype=i32) - 1
+            rank_tent = (live_b.sum(-1, keepdim=True, dtype=i32)
+                         + torch.cumsum(tent_b.to(i32), -1, dtype=i32) - 1)
+            new_rank = torch.where(live_b, rank_live, rank_tent)  # (S, D)
+            free = tid == 0
+            free_rank = torch.cumsum(free.to(i32), -1, dtype=i32) - 1
+            # slot_of_rank[s, r] = the r-th free slot of stream s
+            slot_of_rank = _scatter_drop(
+                torch.full((n_seq, tcap), tcap, dtype=i32, device=dev),
+                torch.where(free, free_rank, tcap),
+                torch.arange(tcap, dtype=i32, device=dev).expand(n_seq, -1))
+            born = is_new & (new_rank < free.sum(-1, keepdim=True,
+                                                 dtype=i32))
+            dst = torch.where(born, torch.gather(
+                slot_of_rank, 1, new_rank.clamp(0, tcap - 1).long()), tcap)
 
-        # ---- emit ----
-        emit = ((tid > 0) & (misses == 0) & any_det[:, None]
-                & ((hits >= t_hit) | (frame_count <= t_hit)[:, None]))
-        new_state = TrackerState(
-            mean=mean, cov=cov, feat=feat, score=score, misses=misses,
-            hits=hits, tid=tid, det_idx=det_idx, next_id=next_id,
-            frame_count=frame_count, last_frame_idx=last_frame_idx,
-            mats=state.mats)
-        output = {'tid': tid, 'box': mean[..., :7], 'score': score,
-                  'det_idx': det_idx, 'emit': emit}
+            init_mean = torch.zeros((n_seq, ndet, _DIM_X), device=dev)
+            init_mean[..., :7] = det_boxes
+            mean = _scatter_drop(mean, dst, init_mean)
+            cov = _scatter_drop(cov, dst, state.mats.p0.expand(
+                n_seq, ndet, _DIM_X, _DIM_X))
+            feat = _scatter_drop(feat, dst, det_feats)
+            score = _scatter_drop(score, dst, det_scores)
+            misses = _scatter_drop(misses, dst, tentative_new.to(i32).expand(
+                n_seq, ndet))
+            hits = _scatter_drop(hits, dst, torch.zeros(
+                (n_seq, ndet), dtype=i32, device=dev))
+            det_idx = _scatter_drop(det_idx, dst, torch.arange(
+                ndet, dtype=i32, device=dev).expand(n_seq, -1))
+            tid = _scatter_drop(tid, dst, state.next_id[:, None] + new_rank)
+            next_id = state.next_id + born.sum(-1, dtype=i32)
+
+        with span('jmodt.tracker.emit'):
+            emit = ((tid > 0) & (misses == 0) & any_det[:, None]
+                    & ((hits >= t_hit) | (frame_count <= t_hit)[:, None]))
+            new_state = TrackerState(
+                mean=mean, cov=cov, feat=feat, score=score, misses=misses,
+                hits=hits, tid=tid, det_idx=det_idx, next_id=next_id,
+                frame_count=frame_count, last_frame_idx=last_frame_idx,
+                mats=state.mats)
+            output = {'tid': tid, 'box': mean[..., :7], 'score': score,
+                      'det_idx': det_idx, 'emit': emit}
         return new_state, output
 
     return step
@@ -576,8 +591,11 @@ def make_device_tracker_step(link_head: nn.Module, device=None, **kw):
     'box' (T, 7), 'score' (T,), 'det_idx' (T,) and 'emit' (T,) bool.
     """
     dev = resolve_device(device)
-    batched = make_batched_tracker_step(link_head, device=dev, **kw)
+    # the batched step's body, without its span: this step opens its own
+    batched = make_batched_tracker_step(link_head, device=dev,
+                                        **kw).__wrapped__
 
+    @spanned('jmodt.tracker')
     def step(state: TrackerState, frame_id, det_boxes, det_scores,
              det_feats, det_mask):
         one = [upload(x, dev)[None] for x in (

@@ -45,6 +45,7 @@ from jmodt_torch.losses import (batch_sum, get_reg_loss, masked_mean,
                                 sigmoid_focal_loss)
 from jmodt_torch.models.proposal import RoiDraws, sample_roi_draws
 from jmodt_torch.parallel import mesh
+from jmodt_torch.utils.trace import span, spanned
 
 # the keys of a train batch the step reads (make_pair_batch's)
 BATCH_KEYS = ('pts_input', 'img', 'pts_xy', 'gt_boxes3d', 'gt_tids',
@@ -367,21 +368,27 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     replicated = [p for n, p in model.named_parameters()
                   if not n.startswith('rpn.')]
 
+    @spanned('jmodt.train_step')
     def train_step(batch):
         model.train()
-        batch = to_device(batch, dev)
+        with span('jmodt.upload'):
+            batch = to_device(batch, dev)
         model.zero_grad(set_to_none=True)
-        with torch.enable_grad():
+        with torch.enable_grad(), span('jmodt.forward'):
             output = _forward(cfg, model, batch,
                               step_seed(seed, optimizer.count), dev,
                               roi_draws)
             loss, tb = compute_losses(cfg, output, batch)
-            loss.backward()
-        mesh.sum_grads(model.parameters(), replicated=replicated)
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        tb['grad_norm'] = (global_norm(grads) if grads
-                           else torch.zeros((), device=dev))
-        optimizer.step()
+        with span('jmodt.backward'):
+            with torch.enable_grad():
+                loss.backward()
+            mesh.sum_grads(model.parameters(), replicated=replicated)
+        with span('jmodt.optimizer'):
+            grads = [p.grad for p in model.parameters()
+                     if p.grad is not None]
+            tb['grad_norm'] = (global_norm(grads) if grads
+                               else torch.zeros((), device=dev))
+            optimizer.step()
         return tb
 
     return train_step
