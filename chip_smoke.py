@@ -5,6 +5,7 @@
     python3 chip_smoke.py --remainder        # phases 1 and 16 alone
     python3 chip_smoke.py --points-parallel  # phases 1 and 17 alone
     python3 chip_smoke.py --device-frame     # phases 1 and 18 alone
+    python3 chip_smoke.py --graphs           # phases 1 and 19 alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -30,9 +31,9 @@ Phases, in order; any failure exits non-zero:
             held against the plain version).
 3. step     the detection step at the default Config() (bfloat16 network,
             16384 points, 384x1280 uint8 image, random weights from seed 0)
-            runs 3 frames with the launch counts set to 0 just before; each
-            kernel must have launched its per-frame count on every frame,
-            outputs must be finite and roi_mask / keep non-empty.
+            runs 3 frames: each kernel must have launched its per-frame
+            count on every frame (the launch gates below), outputs must be
+            finite and roi_mask / keep non-empty.
 4. parity   one frame with DTYPE=float32 and the same weights on the card
             and on the CPU: rpn_cls, rpn_reg, backbone_features, rois, boxes,
             scores and feats within 1e-3 of their scale; roi_mask and keep
@@ -48,10 +49,10 @@ Phases, in order; any failure exits non-zero:
 6. joint    the joint detect + track step (the main path: Config() with
             RPN.MEGA_SA, bfloat16, detector weights from seed 0, a link
             head from seed 1, 64 track slots, top 16 detections, score
-            threshold 0.2, Hungarian assignment) runs 4 frames with the
-            launch counts set to 0 just before; each kernel must launch its
-            per-frame count on every frame, packed rows must be finite and
-            some emitted.  Then one frame fed three times to a new state:
+            threshold 0.2, Hungarian assignment) runs 4 frames; each
+            kernel must launch its per-frame count on every frame (the
+            launch gates below), packed rows must be finite and some
+            emitted.  Then one frame fed three times to a new state:
             every track id emitted on the first pass comes back on the next
             two.
 7. parity   3 frames of the joint step in float32 on the card and on the
@@ -63,9 +64,9 @@ Phases, in order; any failure exits non-zero:
             its plain version with phase 2's and 5's tolerances (K1 once,
             on level 0 of all streams, 4 x 16384 points; K2 and K4 over
             400 RoI clouds; K3, K5 and K6 at batch 4; K2 also timed, with
-            its plan, us a step and warp sweep).  Then 3 frames with
-            the launch counts set to 0 just before; each kernel must launch
-            its per-frame count on every lockstep frame (not per stream),
+            its plan, us a step and warp sweep).  Then 3 frames; each
+            kernel must launch its per-frame count on every lockstep frame
+            (not per stream; the launch gates below),
             packed (4, 64, 10) rows must be finite and some emitted, and
             the tracker must not read the host (0 a frame).  Then 2
             frames in float32 at S = 2 against two
@@ -135,10 +136,10 @@ Phases, in order; any failure exits non-zero:
             truth) and converted by `data/converter.py`; Config()
             (16384 points, a 384x1280 uint8 image, 100 RoIs), random weights
             from seed 0 and link / se heads from seed 1, saved as a port
-            .pth and read back by `--ckpt`.  Stage 1: the launch counts
-            set to 0 just before; each kernel must launch its detection
-            step count (K1 4 / K2 2 / K3 4 / K4 8 / K5 0 / K6 4) on every
-            frame; every kernel call of frame 1 held against its plain
+            .pth and read back by `--ckpt`.  Stage 1: each kernel must
+            launch its detection step count (K1 4 / K2 2 / K3 4 / K4 8 /
+            K5 0 / K6 4) on every frame of the CLI (the launch gates
+            below); every kernel call of frame 1 held against its plain
             version with phase 2's tolerances; the txt and feat files equal
             byte for byte to those of a direct make_detection_step run on
             the same collated batches; the recall counters equal to a CPU
@@ -204,13 +205,13 @@ Phases, in order; any failure exits non-zero:
             RPN.MEGA_SA) split over [cuda:0, cuda:0] (and two cards when
             there are): float32 rows and states equal to the unsplit
             step's (tid, emit and integers exact, floats within 1e-4), K5
-            3 launches a part a frame, and ms a lockstep frame split and
-            unsplit (bfloat16).
+            3 launches a part a frame (the launch gates below), and ms a
+            lockstep frame split and unsplit (bfloat16).
 16. remainder (a) the detection step at Config() and the joint step
             with RPN.MEGA_SA, each with LI_FUSION.FUSED_PYRAMID (the image
-            pyramid sampled at the points, never made whole), bfloat16, 3
-            frames with the launch counts set to 0 just before: phase 3's
-            and 6's launches a frame and one fused pyramid forward a frame;
+            pyramid sampled at the points, never made whole), bfloat16:
+            one fused pyramid forward in an eager frame, then 3 frames
+            with phase 3's and 6's launch gates and no materialized one;
             then float32 with TF32 off, fused against materialized on the
             card with the same weights (backbone_features, rois, boxes,
             scores and the joint rows within 1e-3 of their scale; roi_mask,
@@ -275,6 +276,29 @@ Phases, in order; any failure exits non-zero:
             device ms and idle share (profiled), synchronizing calls a frame
             by call site, the synchronized detection and tracker stages,
             and the proposal layer's share of a synchronized finetune step.
+            The recording runs eagerly (`graphs.eager()`).
+19. graphs  the eval frame's CUDA graph sections (jmodt_torch/utils/
+            graphs.py) replayed against the same frames run eagerly
+            (`jmodt_torch/tools/graph_parity.check`), bfloat16: 8 frames
+            of the joint step with RPN.MEGA_SA, fusion and LiDAR-only, the
+            tracker state reset after 4, and 4 lockstep frames at S = 4;
+            ints and bools equal, floats within 1e-4 of scale, each
+            frame's outputs intact after later replays, every section
+            replayed from frame 2 on; wrapper launches a frame as eager's
+            where the sections' Python ran and none in a replay, and the
+            kernel nodes of each frame's replayed graphs equal to the
+            eager frame's launches; K5 from its FPS grid's start to its
+            consumer grid's end, replayed and eager.
+
+Launch gates (phases 3, 6, 8, 13, 15, 16): a frame's kernels are counted
+twice.  `kernels.launches` counts the wrapper calls of a frame that runs
+its sections' Python (a signature's first call, eager, and its second,
+captured); a frame that only replays CUDA graphs (`utils/graphs.py`)
+calls no wrapper and must add none.  The graphs a frame replays (its
+second on) are read through the CUDA driver, and their kernel nodes
+counted by name (`graph_parity.graph_kernels`): each kernel must match
+its per-frame count there too, and some frame of each loop must replay
+alone.  The launches printed are the graphs' where a frame replayed.
 
 Prints a {"kernels": [...]} line (launches from phase 6; per path from
 phases 3, 6, 8, 13, 16 and per training step from 11, 12, 14 and 15;
@@ -290,8 +314,10 @@ one card; without one it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -488,7 +514,8 @@ def show(t) -> str:
 # ------------------------------------------------------- phases 2, 5, 8
 
 def record_kernel_inputs(run):
-    """Run one frame (`run()`), recording the arguments of every kernel
+    """Run one frame (`run()`) eagerly (a replayed CUDA graph calls no
+    spied function, `utils/graphs.py`), recording the arguments of every kernel
     wrapper call in main-path order, {kernel name: [args, ...]}, and every
     NonOverlapDeconv call, [(module, input), ...].  An FPS call is filed
     under the kernel whose launch count it raised.  Returns ((calls,
@@ -497,6 +524,7 @@ def record_kernel_inputs(run):
     import jmodt_torch.models.pointnet2 as pointnet2
     import jmodt_torch.ops.fused_sa as fused_sa
     from jmodt_torch.ops import kernels
+    from jmodt_torch.utils import graphs
     calls = {k['name']: [] for k in KERNELS}
     deconvs = []
     deconv_cls = image_backbone.NonOverlapDeconv
@@ -531,7 +559,8 @@ def record_kernel_inputs(run):
     image_backbone.depth_to_space = spy('depth_to_space', originals[4])
     deconv_cls.forward = deconv
     try:
-        out = run()
+        with graphs.eager():
+            out = run()
         torch.cuda.synchronize()
     finally:
         (pointnet2.farthest_point_sample, pointnet2.three_nn,
@@ -733,23 +762,63 @@ def finite(out) -> bool:
                if v.is_floating_point())
 
 
-def run_step(step, frames):
+def counted(call):
+    """(call(), the frame's record: the `kernels.launches` and
+    `kernels.graphs` it added, and the launches of the CUDA graphs it
+    replayed, read from their kernel nodes)."""
     from jmodt_torch.ops import kernels
-    kernels.launches.clear()
+    from jmodt_torch.tools.graph_parity import replayed_launches
+    launches, sections = kernels.launches.copy(), kernels.graphs.copy()
+    out, graphed = replayed_launches(call)
+    return out, dict(wrapper=dict(kernels.launches - launches),
+                     sections=dict(kernels.graphs - sections),
+                     graphed=graphed)
+
+
+def frame_gates(what, records, per_frame):
+    """Per frame of a loop (`records` from `counted`): each kernel
+    launched `per_frame` times through its wrapper where the frame ran its
+    sections' Python (eager or captured), none where it only replayed (a
+    replay calls no wrapper); and `per_frame` times by the kernel nodes
+    of the graphs it replayed, if it replayed any.  Some frame must have
+    replayed alone.  Returns the launches summed over the frames (a
+    frame's graphs', or its wrappers' where it replayed none)."""
+    from jmodt_torch.tools.graph_parity import replay_only
+    check(any(replay_only(r['sections']) for r in records),
+          f'{what}: no frame replayed alone '
+          f'({[r["sections"] for r in records]})')
+    total = collections.Counter()
+    for i, r in enumerate(records):
+        graphed = any(k.endswith('.replays') for k in r['sections'])
+        for name, per in per_frame.items():
+            want = 0 if replay_only(r['sections']) else per
+            check(r['wrapper'].get(name, 0) == want, f'{what}: {name} '
+                  f'launched {r["wrapper"].get(name, 0)} times through its '
+                  f'wrapper in frame {i + 1} ({r["sections"]}), expected '
+                  f'{want}')
+            want = per if graphed else 0
+            check(r['graphed'].get(name, 0) == want, f'{what}: {name} '
+                  f'launched {r["graphed"].get(name, 0)} times by the '
+                  f'graphs replayed in frame {i + 1} ({r["sections"]}), '
+                  f'expected {want}')
+        total.update(r['graphed'] if graphed else r['wrapper'])
+    return dict(total)
+
+
+def run_step(step, frames):
+    """Phase 3: the frames timed, with the launch gates of `frame_gates`
+    a frame."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs, per_frame = [], []
+    outs, records = [], []
     for f in frames:
-        outs.append(step(f['pts_input'], f['img'], f['pts_xy']))
-        per_frame.append(dict(kernels.launches))    # running totals
+        out, rec = counted(functools.partial(step, f['pts_input'], f['img'],
+                                             f['pts_xy']))
+        outs.append(out)
+        records.append(rec)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / len(frames)
-    counts = dict(kernels.launches)
-    for i, seen in enumerate(per_frame):
-        for name, per in PER_FRAME.items():
-            check(seen.get(name, 0) == per * (i + 1),
-                  f'step: {name} launched {seen.get(name, 0)} times in '
-                  f'{i + 1} frames, expected {per * (i + 1)}')
+    counts = frame_gates('step', records, PER_FRAME)
     for i, out in enumerate(outs):
         check(finite(out), f'step frame {i}: non-finite output')
         check(bool(out['roi_mask'].any()), f'step frame {i}: no RoI')
@@ -949,27 +1018,20 @@ def check_k5(calls, timed=True):
 
 
 def run_joint(joint, cfg, frames):
-    """Phase 6: 4 frames with per-frame launch checks, then one frame fed
-    three times to a new state."""
-    from jmodt_torch.ops import kernels
+    """Phase 6: 4 frames with the launch gates of `frame_gates` a frame,
+    then one frame fed three times to a new state."""
     state = new_state(cfg)
-    kernels.launches.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    packs, per_frame = [], []
+    packs, records = [], []
     for i, f in enumerate(frames):
-        state, packed = joint(state, i + 1, f['pts_input'], f['img'],
-                              f['pts_xy'])
+        (state, packed), rec = counted(functools.partial(
+            joint, state, i + 1, f['pts_input'], f['img'], f['pts_xy']))
         packs.append(packed)
-        per_frame.append(dict(kernels.launches))    # running totals
+        records.append(rec)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / len(frames)
-    counts = dict(kernels.launches)
-    for i, seen in enumerate(per_frame):
-        for name, per in PER_FRAME_JOINT.items():
-            check(seen.get(name, 0) == per * (i + 1),
-                  f'joint: {name} launched {seen.get(name, 0)} times in '
-                  f'{i + 1} frames, expected {per * (i + 1)}')
+    counts = frame_gates('joint', records, PER_FRAME_JOINT)
     emitted = 0
     for i, packed in enumerate(packs):
         check(bool(torch.isfinite(packed).all()),
@@ -1028,9 +1090,9 @@ def lockstep_inputs(frames, t, streams):
 def run_batched(bjoint, cfg, frames):
     """Phase 8: one lockstep frame records every kernel's inputs, which are
     then held against the plain versions (K2 also timed); then 3 frames
-    with per-frame launch and host-read checks.  Returns (ms a lockstep
-    frame, launches, rows emitted a lockstep frame, K2's aggregate)."""
-    from jmodt_torch.ops import kernels
+    with per-frame launch (`frame_gates`) and host-read checks.  Returns
+    (ms a lockstep frame, launches, rows emitted a lockstep frame, K2's
+    aggregate)."""
     from jmodt_torch.tracking import device_tracker
     states = new_state(cfg, streams=STREAMS)
     recorded, (states, _) = record_kernel_inputs(
@@ -1041,24 +1103,20 @@ def run_batched(bjoint, cfg, frames):
     k2 = check_kernels(recorded, PER_FRAME_JOINT,
                        timed=('fps_batched',))['fps_batched']
     inputs = [lockstep_inputs(frames, t, STREAMS) for t in (1, 2, 3)]
-    kernels.launches.clear()
     reads0 = device_tracker.host_syncs
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    packs, per_frame, reads = [], [], []
+    packs, records, reads = [], [], []
     for args in inputs:
-        states, packed = bjoint(states, *args)
+        (states, packed), rec = counted(functools.partial(bjoint, states,
+                                                          *args))
         packs.append(packed)
-        per_frame.append(dict(kernels.launches))    # running totals
+        records.append(rec)
         reads.append(device_tracker.host_syncs - reads0)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / len(inputs)
-    counts = dict(kernels.launches)
-    for i, seen in enumerate(per_frame):
-        for name, per in PER_FRAME_JOINT.items():
-            check(seen.get(name, 0) == per * (i + 1),
-                  f'streams: {name} launched {seen.get(name, 0)} times in '
-                  f'{i + 1} lockstep frames, expected {per * (i + 1)}')
+    counts = frame_gates('streams', records, PER_FRAME_JOINT)
+    for i in range(len(inputs)):
         check(reads[i] == HOST_READS * (i + 1),
               f'streams: {reads[i]} tracker host reads in {i + 1} frames, '
               f'expected {HOST_READS * (i + 1)}')
@@ -1605,7 +1663,6 @@ def eval_entry(tmp):
     from jmodt_torch.eval import __main__ as ev
     from jmodt_torch.eval import clear_mot, detection_ap
     from jmodt_torch.models.inference import make_detection_step
-    from jmodt_torch.ops import kernels
     log = logging.getLogger('chip_smoke.eval')
     log.addHandler(logging.NullHandler())
     log.propagate = False
@@ -1621,7 +1678,7 @@ def eval_entry(tmp):
     # stage 1: keep each frame's (sample id, batch, calibration, image
     # shape), the step's outputs and the running launch counts (no host
     # read is added to the frame)
-    items, outs, per_frame, models, step_ms = [], [], [], [], []
+    items, outs, models, records, step_ms = [], [], [], [], []
     frames_of, make_step = ev.detection_frames, ev.make_detection_step
 
     def detection_frames(*a):
@@ -1639,30 +1696,25 @@ def eval_entry(tmp):
 
         def run(*x):
             t = time.perf_counter()
-            out = step(*x)
+            out, rec = counted(functools.partial(step, *x))
             torch.cuda.synchronize()   # the CLI's read of `packed` waits
             step_ms.append((time.perf_counter() - t) * 1e3)
             outs.append(out)
-            per_frame.append(dict(kernels.launches))
+            records.append(rec)
             return out
         return run
 
     ev.detection_frames, ev.make_detection_step = (detection_frames,
                                                    recording_step)
     try:
-        kernels.launches.clear()
         res = ev.eval_joint_detection(args(f'{tmp}/eval'), cfg, log)
     finally:
         ev.detection_frames, ev.make_detection_step = frames_of, make_step
     n = len(EVAL_SEQS) * EVAL_FRAMES
     check(res['frames'] == n == len(outs), f'eval: {res["frames"]} frames')
-    for i, seen in enumerate(per_frame):
-        for name in PER_FRAME_JOINT:
-            want = PER_FRAME.get(name, 0) * (i + 1)
-            check(seen.get(name, 0) == want, f'eval: {name} launched '
-                  f'{seen.get(name, 0)} times in {i + 1} frames, expected '
-                  f'{want}')
-    eval_frame = {k: v // n for k, v in per_frame[-1].items()}
+    per = {name: PER_FRAME.get(name, 0) for name in PER_FRAME_JOINT}
+    counts = frame_gates('eval', records, per)
+    eval_frame = {k: v // n for k, v in counts.items()}
 
     # every kernel call of one frame against its plain version
     batches = [item[1] for item in items]
@@ -2334,7 +2386,6 @@ def split_lockstep(frames):
     there are several) against the unsplit step: float32 rows and states
     over SPLIT_FRAMES frames, K5's launches a part; then bfloat16 ms a
     lockstep frame, split and unsplit."""
-    from jmodt_torch.ops import kernels
     from jmodt_torch.pipeline import make_batched_joint_step
     from jmodt_torch.tracking.device_tracker import init_batched_state
     splits = [['cuda:0', 'cuda:0']]
@@ -2360,20 +2411,19 @@ def split_lockstep(frames):
             parts = 1 if name == 'unsplit' else 2
             if dtype == 'bfloat16':          # warm-up, then timed
                 states[name], _ = step(states[name], *inputs[-1])
-            kernels.launches.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            packs[name] = []
+            packs[name], records = [], []
             for t in range(SPLIT_FRAMES):
-                states[name], packed = step(states[name], *inputs[t])
+                (states[name], packed), rec = counted(functools.partial(
+                    step, states[name], *inputs[t]))
                 packs[name].append(packed)
-                k5 = kernels.launches['sa_level']
-                check(k5 == 3 * parts * (t + 1), f'split lockstep {name} '
-                      f'({dtype}): K5 launched {k5} times in {t + 1} frames,'
-                      f' expected {3 * parts * (t + 1)}')
+                records.append(rec)
             torch.cuda.synchronize()
             res['ms'][(name, dtype)] = ((time.perf_counter() - t0) * 1e3
                                         / SPLIT_FRAMES)
+            frame_gates(f'split lockstep {name} ({dtype})', records,
+                        {'sa_level': 3 * parts})
         for name in steps:
             check(all(bool(torch.isfinite(p).all()) for p in packs[name]),
                   f'split lockstep {name} ({dtype}): non-finite rows')
@@ -2470,28 +2520,44 @@ def routes_since(before: dict) -> dict:
 
 def fused_paths(frames):
     """Phase 16 (a), bfloat16: the detection step at Config() and the
-    joint step with RPN.MEGA_SA, each with FUSED_PYRAMID, phases 3's and
-    6's launch checks a frame and one fused forward a frame."""
+    joint step with RPN.MEGA_SA, each with FUSED_PYRAMID: one fused
+    forward in an eager frame (the route counters are Python, which a
+    replayed CUDA graph does not run, `utils/graphs.py`), then phases 3's
+    and 6's launch checks a frame, with no materialized forward."""
     from jmodt_torch.config import Config
     from jmodt_torch.models import image_backbone
     from jmodt_torch.models.inference import make_detection_step
     from jmodt_torch.models.point_rcnn import build_detector
-    n = PYRAMID_FRAMES
+    from jmodt_torch.utils import graphs
+    n, f = PYRAMID_FRAMES, frames[0]
+
+    def routed(what, run_eager, run):
+        before = dict(image_backbone.pyramid_routes)
+        with graphs.eager():
+            run_eager()
+        routes = routes_since(before)
+        check(routes == {'fused': 1, 'materialized': 0},
+              f'fused pyramid: {what} routes {routes} in an eager frame')
+        before = dict(image_backbone.pyramid_routes)
+        out = run()
+        routes = routes_since(before)
+        check(routes['materialized'] == 0 and routes['fused'] > 0,
+              f'fused pyramid: {what} routes {routes} in {n} frames')
+        return out
+
     cfg = pyramid_cfg(dataclasses.replace(Config(), DTYPE='bfloat16'), True)
     step = make_detection_step(cfg, build_detector(cfg, seed=0))
-    before = dict(image_backbone.pyramid_routes)
-    _, det_counts, _ = run_step(step, frames[:n])
-    routes = routes_since(before)
-    check(routes == {'fused': n, 'materialized': 0},
-          f'fused pyramid: detection step routes {routes} in {n} frames')
+    _, det_counts, _ = routed(
+        'detection step',
+        lambda: step(f['pts_input'], f['img'], f['pts_xy']),
+        lambda: run_step(step, frames[:n]))
     mcfg = pyramid_cfg(mega_cfg('bfloat16'), True)
     joint = build_joint(mcfg)
-    before = dict(image_backbone.pyramid_routes)
-    # n frames, then one frame fed three times (run_joint)
-    _, joint_counts, _, _ = run_joint(joint, mcfg, frames[:n])
-    routes = routes_since(before)
-    check(routes == {'fused': n + 3, 'materialized': 0},
-          f'fused pyramid: joint step routes {routes} in {n + 3} frames')
+    _, joint_counts, _, _ = routed(
+        'joint step',
+        lambda: joint(new_state(mcfg), 1, f['pts_input'], f['img'],
+                      f['pts_xy']),
+        lambda: run_joint(joint, mcfg, frames[:n]))
     return ({k: v // n for k, v in det_counts.items()},
             {k: v // n for k, v in joint_counts.items()})
 
@@ -2821,7 +2887,8 @@ def remainder_phase(frames) -> dict:
     print(f'[16 remainder] (a) LI_FUSION.FUSED_PYRAMID, bfloat16, '
           f'{PYRAMID_FRAMES} frames: launches a frame detection step '
           f'{det_counts}, joint step (RPN.MEGA_SA) {joint_counts}; one fused '
-          'pyramid forward a frame, none materialized', flush=True)
+          'pyramid forward in an eager frame, none materialized in the '
+          'frames timed', flush=True)
     errs, emitted = fused_parity(frames)
     print('[16 remainder] (a) float32, TF32 off, fused vs materialized on '
           'the card: roi_mask, keep equal; joint tid, emit equal ('
@@ -3154,11 +3221,13 @@ IOU_ROWS = 256          # boxes a block of the pair-IoU comparison
 
 
 def record_loop_kernels(run):
-    """Run `run()`, recording the arguments of every N1, N2 and N3 launch
+    """Run `run()` eagerly (a replayed CUDA graph calls no spied function,
+    `utils/graphs.py`), recording the arguments of every N1, N2 and N3 launch
     in path order, {name: [args, ...]}; returns (calls, what `run`
     returned)."""
     from jmodt_torch.ops import nms
     from jmodt_torch.tracking import device_tracker as dt
+    from jmodt_torch.utils import graphs
     calls = {k['name']: [] for k in LOOP_KERNELS}
     originals = (nms._nms_kernel, dt._lap_assign_kernel,
                  dt._kalman_predict_kernel)
@@ -3173,7 +3242,8 @@ def record_loop_kernels(run):
     dt._lap_assign_kernel = spy('lap', originals[1])
     dt._kalman_predict_kernel = spy('kalman_predict', originals[2])
     try:
-        out = run()
+        with graphs.eager():
+            out = run()
         torch.cuda.synchronize()
     finally:
         (nms._nms_kernel, dt._lap_assign_kernel,
@@ -3613,6 +3683,51 @@ def device_frame_phase(frames) -> dict:
                 tracker_ms=spans['jmodt.tracker'][1])
 
 
+# ----------------------------------------------------------------- phase 19
+
+GRAPH_TOL = 1e-4        # replayed against eager, of each float's scale
+
+
+def graphs_phase() -> dict:
+    """Phase 19: the eval frame's sections (`utils/graphs.py`) replayed as
+    CUDA graphs against the same frames run eagerly
+    (`jmodt_torch/tools/graph_parity.check`), bfloat16: 8 frames of the
+    joint step with RPN.MEGA_SA, fusion and LiDAR-only, the tracker state
+    reset after 4, and 4 lockstep frames at S = STREAMS; K5 timed both
+    ways."""
+    from jmodt_torch.tools import graph_parity
+    t0 = time.perf_counter()
+    cfg = mega_cfg('bfloat16')
+    lidar = dataclasses.replace(cfg, LI_FUSION=dataclasses.replace(
+        cfg.LI_FUSION, ENABLED=False))
+    res = {'fusion': graph_parity.check(cfg, 8, None, 'cuda', GRAPH_TOL,
+                                        time_k5=True),
+           'LiDAR-only': graph_parity.check(lidar, 8, None, 'cuda',
+                                            GRAPH_TOL),
+           f'lockstep S={STREAMS}': graph_parity.check(
+               cfg, 4, STREAMS, 'cuda', GRAPH_TOL, reset=False)}
+    for name, r in res.items():
+        check(not r['failures'], f'graphs {name}: '
+              + '; '.join(r['failures'][:5]))
+        check(any(r['rows_emitted']), f'graphs {name}: no row emitted')
+        print(f'[19 graphs] {name}: replayed frames equal to eager ones '
+              f'({r["tensors"]} tensors; ints and bools equal, floats err '
+              f'{r["max_float_err"]:.3g}), intact after the later frames, '
+              'each section replayed from frame 2 on, no wrapper launch in '
+              'a replay; the last frame\'s graphs launch '
+              f'{r["replayed_launches"][-1]}, the eager frame\'s launches',
+              flush=True)
+    k5e, k5r = res['fusion']['k5_eager'], res['fusion']['k5_replayed']
+    print(f'[19 graphs] K5 (FPS grid start to consumer grid end, 3 levels '
+          f'a frame, profiled): eager {k5e["ms_per_frame"]:.4f} ms a frame '
+          f'({k5e["overlapped"]} of {k5e["levels"]} consumer grids started '
+          f'before their FPS grid ended), replayed '
+          f'{k5r["ms_per_frame"]:.4f} ms ({k5r["overlapped"]} of '
+          f'{k5r["levels"]}) ({time.perf_counter() - t0:.1f} s)',
+          flush=True)
+    return {'k5_eager': k5e, 'k5_replayed': k5r}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3646,6 +3761,10 @@ def main(argv) -> int:
         return 0
     if argv == ['--device-frame']:      # phase 18 alone
         device_frame_phase(frames)
+        print_device()
+        return 0
+    if argv == ['--graphs']:            # phase 19 alone
+        graphs_phase()
         print_device()
         return 0
     if argv:
@@ -3836,6 +3955,7 @@ def main(argv) -> int:
     rem = remainder_phase(frames)
     pp = points_parallel_phase(dp)
     df = device_frame_phase(frames)
+    graphs_phase()
     agg.update(df['agg'])
 
     rows = []

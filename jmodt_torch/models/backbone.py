@@ -14,6 +14,7 @@ from jmodt_torch.models.image_backbone import (BasicBlock, ImagePyramidFusion,
 from jmodt_torch.models.layers import (PointwiseLayer, compute_dtype, dense)
 from jmodt_torch.models.pointnet2 import FPModule, SAModuleMSG
 from jmodt_torch.parallel import mesh
+from jmodt_torch.utils.graphs import Section
 from jmodt_torch.utils.trace import span, spanned
 
 
@@ -122,9 +123,18 @@ class PointNet2MSG(nn.Module):
             self.final_fusion = AttentionFusion(
                 li.IMG_FEATURES_CHANNEL // 4, li.IMG_FEATURES_CHANNEL,
                 li.IMG_FEATURES_CHANNEL, dtype=dtype, device=device)
+        self._section = Section('backbone', self._forward, [self])
 
     @spanned('jmodt.backbone')
     def forward(self, pc, image=None, xy=None, train_step: bool = False):
+        """Outside a training step the body is a CUDA graph section
+        (`utils/graphs.py`): replayed on the card in eval mode under
+        no_grad, eager elsewhere."""
+        if train_step:
+            return self._forward(pc, image, xy, train_step)
+        return self._section(pc, image, xy)
+
+    def _forward(self, pc, image=None, xy=None, train_step: bool = False):
         cfg = self.cfg
         n_sa = len(cfg.RPN.SA_CONFIG.NPOINTS)
         use_fusion = cfg.LI_FUSION.ENABLED and image is not None

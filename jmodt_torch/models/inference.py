@@ -7,6 +7,7 @@ its decoded boxes and RoIs.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
@@ -19,11 +20,15 @@ from jmodt_torch.models.point_rcnn import PointRCNN
 from jmodt_torch.ops.geometry import boxes3d_to_bev
 from jmodt_torch.ops.nms import nms_bev_batched
 from jmodt_torch.ops.rotated_iou import boxes_iou3d
+from jmodt_torch.utils.graphs import Section
 from jmodt_torch.utils.trace import span
 
 # ImageNet stats, applied in the step when it receives a raw uint8 image
 _IMG_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 _IMG_STD = np.array([0.229, 0.224, 0.225], np.float32)
+# what `_decode` reads of the eval forward's outputs
+_DECODE_IN = ('rois', 'rcnn_cls', 'rcnn_reg', 'rcnn_feat', 'rcnn_iou_branch',
+              'roi_mask', 'seg_result')
 
 
 def make_detection_step(cfg: Config, model: PointRCNN, device=None):
@@ -34,7 +39,9 @@ def make_detection_step(cfg: Config, model: PointRCNN, device=None):
     (B, M, 7), scores (B, M), feats (B, M, 512), keep (B, M) bool (the
     survivors of score threshold + rotated NMS, descending score), rois,
     roi_mask, pred_boxes_all, seg_result and `packed`
-    [boxes | score | keep | feats]."""
+    [boxes | score | keep | feats].  On the card the backbone, the rest of
+    the eval forward and the decode replay as CUDA graphs
+    (`utils/graphs.py`) from a signature's second call on."""
     dev = resolve_device(device)
     model.to(dev).eval()
     m = cfg.mode_cfg(model.mode).RPN_POST_NMS_TOP_N
@@ -42,6 +49,8 @@ def make_detection_step(cfg: Config, model: PointRCNN, device=None):
     mean = torch.tensor(_IMG_MEAN, device=dev)
     std = torch.tensor(_IMG_STD, device=dev)
     anchor = torch.tensor(cfg.mean_size, device=dev)
+    decode = Section('decode', functools.partial(_decode, cfg, mc, m,
+                                                 anchor))
 
     @torch.no_grad()
     def step(pts, img, xy) -> Dict[str, torch.Tensor]:
@@ -55,7 +64,8 @@ def make_detection_step(cfg: Config, model: PointRCNN, device=None):
         with span('jmodt.detection'):
             out = model(pts, img, xy)
             with span('jmodt.detection.decode'):
-                return _decode(cfg, mc, m, anchor, pts.shape[0], out)
+                return decode(pts.shape[0], {k: out[k] for k in _DECODE_IN
+                                             if k in out})
 
     return step
 
@@ -64,7 +74,8 @@ def _decode(cfg: Config, mc, m: int, anchor: torch.Tensor, b: int,
             out) -> Dict[str, torch.Tensor]:
     """The detection step's outputs from the eval forward's `out`: RCNN box
     decode, sigmoid scoring, score threshold and the final rotated NMS of
-    the batch's b frames of m RoIs."""
+    the batch's b frames of m RoIs.  The step runs it as a CUDA graph
+    section (`utils/graphs.py`)."""
     rois = out['rois']                                      # (B, M, 7)
     rcnn_cls = out['rcnn_cls'].reshape(b, m)
     rcnn_reg = out['rcnn_reg'].reshape(b, m, -1)

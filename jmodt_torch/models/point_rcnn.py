@@ -1,7 +1,9 @@
 """PointRCNN composite (counterpart of `jmodt_tpu/models/point_rcnn.py`):
 RPN -> proposals -> RoI pooling (eval) or RoI sampling (train) -> RCNN.
 
-Mode 'EVAL' / 'TEST' is the eval forward, under `torch.no_grad()`.  Mode
+Mode 'EVAL' / 'TEST' is the eval forward, under `torch.no_grad()`; on
+the card it runs as two CUDA graph sections, the backbone and the rest
+(`utils/graphs.py`), while the TRAIN forward always runs eagerly.  Mode
 'TRAIN' is the train forward: proposals from the cfg.TRAIN settings, then
 `proposal_target_layer` samples ROI_PER_IMAGE RoIs a frame and their
 targets, and the RCNN runs its ReID branches over the frame pairs.  Each
@@ -53,6 +55,7 @@ from jmodt_torch.models.proposal import (RoiDraws, pool_rois_for_eval,
 from jmodt_torch.models.rcnn import RCNN
 from jmodt_torch.models.rpn import RPN
 from jmodt_torch.parallel import mesh
+from jmodt_torch.utils import graphs
 from jmodt_torch.utils.trace import span, spanned
 
 
@@ -75,6 +78,9 @@ class PointRCNN(nn.Module):
         self.mode = mode
         self.rpn = RPN(cfg, use_xyz=use_xyz, device=device)
         self.rcnn = RCNN(cfg, use_xyz=use_xyz, device=device)
+        self._detection = graphs.Section(
+            'detection', self._eval_rest,
+            [self.rpn.cls_head, self.rpn.reg_head, self.rcnn])
         self.eval()      # the eval forward: its SA levels take the eval paths
 
     def train(self, mode: bool = True):
@@ -89,8 +95,10 @@ class PointRCNN(nn.Module):
                 gt_tids=None, draws: Optional[RoiDraws] = None,
                 generator: Optional[torch.Generator] = None):
         if self.mode == 'TRAIN':
-            return self._train_forward(pts_input, img, pts_xy, gt_boxes3d,
-                                       gt_tids, draws, generator)
+            with graphs.eager():
+                return self._train_forward(pts_input, img, pts_xy,
+                                           gt_boxes3d, gt_tids, draws,
+                                           generator)
         with torch.no_grad():
             return self._eval_forward(pts_input, img, pts_xy)
 
@@ -107,7 +115,14 @@ class PointRCNN(nn.Module):
         return seg_mask, torch.linalg.norm(backbone_xyz, dim=2), props.boxes
 
     def _eval_forward(self, pts_input, img, pts_xy):
-        out = dict(self.rpn(pts_input, img, pts_xy))
+        """The backbone (a CUDA graph section of its own), then the rest
+        as one more (`utils/graphs.py`)."""
+        return self._detection(*self.rpn.backbone(pts_input, img, pts_xy))
+
+    def _eval_rest(self, xyz, feats):
+        """The eval forward after the backbone: RPN heads, proposals, RoI
+        pooling and the RCNN."""
+        out = self.rpn.heads(xyz, feats)
         seg_mask, pts_depth, rois = self._proposals(
             out, out['rpn_cls'][:, :, 0], out['rpn_reg'])
         with span('jmodt.detection.roi_pool'):

@@ -15,7 +15,7 @@ caller may pass any draws instead, such as those the JAX key schedule gives
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -27,6 +27,20 @@ from jmodt_torch.ops.grouping import first_k_true
 from jmodt_torch.ops.nms import nms_bev_batched
 from jmodt_torch.ops.roipool3d import roipool3d
 from jmodt_torch.ops.rotated_iou import boxes_iou3d
+
+
+_ANCHORS: Dict[tuple, torch.Tensor] = {}
+
+
+def anchor_tensor(mean_size, device) -> torch.Tensor:
+    """`mean_size` as a float32 tensor on `device`, uploaded once a
+    process: a CUDA graph that reads it (`utils/graphs.py`) reads it where
+    its capture found it, and copies nothing from the host."""
+    key = (tuple(float(v) for v in mean_size), torch.device(device))
+    t = _ANCHORS.get(key)
+    if t is None:
+        t = _ANCHORS[key] = upload(key[0], device, torch.float32)
+    return t
 
 
 def first_k_indices(mask: torch.Tensor, k: int):
@@ -116,7 +130,7 @@ def proposal_layer(cfg: Config, mode: str, rpn_scores: torch.Tensor,
     """
     mc = cfg.mode_cfg(mode)
     b, n = rpn_scores.shape
-    anchor = upload(cfg.mean_size, xyz.device, torch.float32)
+    anchor = anchor_tensor(cfg.mean_size, xyz.device)
     props = decode_bbox_target(
         xyz.reshape(-1, 3), rpn_reg.reshape(-1, rpn_reg.shape[-1]),
         anchor_size=anchor,

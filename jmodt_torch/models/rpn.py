@@ -43,6 +43,11 @@ class RPN(nn.Module):
     def forward(self, pts_input, img=None, pts_xy=None, generator=None,
                 train_step: bool = False):
         xyz, feats = self.backbone(pts_input, img, pts_xy, train_step)
+        return self.heads(xyz, feats, generator)
+
+    def heads(self, xyz, feats, generator=None):
+        """The classification and regression heads over the backbone's
+        output, and that output."""
         with span('jmodt.detection.rpn_heads'):
             return {'rpn_cls': self.cls_head(feats, generator),
                     'rpn_reg': self.reg_head(feats, generator),

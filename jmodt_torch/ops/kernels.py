@@ -12,7 +12,10 @@ of their tensors' card and allocate nothing; the wrappers allocate with
 `torch.empty`.
 
 `launches` counts, per kernel name, the launches made through `launch`, so
-a caller can show that a path went through the kernels.
+a caller can show that a path went through the kernels; a CUDA graph's
+replay calls no wrapper and adds none (its kernels are its graph's kernel
+nodes, `utils/graphs.py`).  `graphs` counts, per section of the eval frame, its captures, replays and eager
+runs ('<section>.captures', '.replays', '.eager').
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ _SIGNATURES = {
 }
 
 launches: collections.Counter = collections.Counter()
+graphs: collections.Counter = collections.Counter()
 
 _lib: list = []          # the loaded ctypes.CDLL, once built
 _max_cluster: list = []  # K1's largest placeable cluster, once queried

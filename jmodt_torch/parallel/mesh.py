@@ -109,6 +109,12 @@ def points_split() -> Optional[Tuple[int, int]]:
     return _points_axis() if _REGION.get() else None
 
 
+def in_points_region() -> bool:
+    """Whether the caller runs inside `points_region()`, with or without
+    a points axis."""
+    return _REGION.get()
+
+
 def layout() -> Tuple[int, int]:
     """(dp, sp) of the world: (1, 1) without a process group."""
     if not dist.is_initialized():

@@ -15,7 +15,10 @@ all streams; `--path detection` runs the detection step alone at the
 default Config().  `--set` overrides config keys
 (`config.config_from_overrides`, e.g. `--set LI_FUSION.FUSED_PYRAMID
 True`) and takes the rest of the line.  Synthetic frames; one warm-up
-frame first.  Prints:
+frame first, then the frames as the step runs them by default (on the card
+the sections of `utils/graphs.py` captured in the first and replayed as
+CUDA graphs after), and again under `graphs.eager()` where the port's
+Python has to run.  Prints:
 
 * host syncs per frame: every synchronizing CUDA call of the frame (torch's
   sync debug mode), in all and by call site (the file:line whose call
@@ -25,19 +28,20 @@ frame first.  Prints:
   stream-frame), the device time per frame from torch.profiler as the
   union of the kernels' intervals (kernels that overlap, as K5's two
   grids do, count once) beside the sum of their durations, and the
-  device's idle share by the union (and by the sum);
-* spans: each of the port's `jmodt.` spans (`utils/trace.py`) in those
-  profiled frames, with its calls a frame, the device ms a frame of the
+  device's idle share by the union (and by the sum), replayed and eager;
+* spans: each of the port's `jmodt.` spans (`utils/trace.py`) in the
+  eager profiled frames (a replay opens only the spans around its
+  section), with its calls a frame, the device ms a frame of the
   operations launched inside it (all of them, and those whose innermost
   span it is) and the device's idle ms a frame while it was the innermost
   span open on the host; the innermost columns add up, with '(none)', to
   the frames' summed device time and their idle between device
   operations;
 * the kernels with the most device time per frame, and the host ops with
-  the most CPU time;
+  the most CPU time, of the eager frames;
 * deconvs: wall ms per frame with each NonOverlapDeconv computed as the
   port does (matmul + K6) and as one F.conv_transpose2d call, the two
-  taking frames in turn.
+  taking frames in turn, eager.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -304,6 +309,7 @@ def main() -> None:
 
     from jmodt_torch.config import Config, config_from_overrides
     from jmodt_torch.data.synthetic import make_eval_frame
+    from jmodt_torch.utils import graphs
 
     cfg = dataclasses.replace(Config(), DTYPE=args.dtype)
     if args.set_cfgs:
@@ -331,17 +337,20 @@ def main() -> None:
           f'sync debug mode; {args.frames} frames); by call site: '
           + (', '.join(f'{k} {v:g}' for k, v in sites.items()) or 'none'))
 
-    prof = device_time(run, frames[1:])
-    wall, dev, summed, kern = (prof[k] for k in ('wall_ms', 'device_ms',
-                                                 'summed_ms', 'kernels'))
-    print(f'frame: {wall:.3f} ms wall, {dev:.3f} ms of device time (union '
-          f'of kernel intervals; sum of kernel durations {summed:.3f}), '
-          f'idle share {prof["idle"]:.3f} (by the sum '
-          f'{prof["idle_by_sum"]:.3f}) ({args.frames} frames, profiled)')
-    if streams:
-        print(f'stream-frame: {wall / streams:.3f} ms wall, '
-              f'{dev / streams:.3f} ms of device time ({streams} streams)')
-    print(f'spans of a profiled {what} frame ({args.dtype}): calls, '
+    for how in ('replayed', 'eager'):
+        with graphs.eager() if how == 'eager' else contextlib.nullcontext():
+            prof = device_time(run, frames[1:])
+        wall, dev, summed, kern = (prof[k] for k in (
+            'wall_ms', 'device_ms', 'summed_ms', 'kernels'))
+        print(f'frame ({how}): {wall:.3f} ms wall, {dev:.3f} ms of device '
+              f'time (union of kernel intervals; sum of kernel durations '
+              f'{summed:.3f}), idle share {prof["idle"]:.3f} (by the sum '
+              f'{prof["idle_by_sum"]:.3f}) ({args.frames} frames, profiled)')
+        if streams:
+            print(f'stream-frame ({how}): {wall / streams:.3f} ms wall, '
+                  f'{dev / streams:.3f} ms of device time ({streams} '
+                  'streams)')
+    print(f'spans of a profiled {what} frame ({args.dtype}, eager): calls, '
           'device ms of the ops launched inside / as the innermost span, '
           'idle ms as the innermost span:')
     for name, (calls, inside, own, idle) in sorted(
@@ -360,8 +369,9 @@ def main() -> None:
         print(f'  {e.self_cpu_time_total / 1e3 / args.frames:9.3f}  '
               f'x{e.count // args.frames:<5d} {e.key[:90]}')
 
-    _compare_deconv(run, frames[:1])                 # warm-up of both
-    port, library = _compare_deconv(run, frames[1:])
+    with graphs.eager():          # the patched forward runs in Python
+        _compare_deconv(run, frames[:1])             # warm-up of both
+        port, library = _compare_deconv(run, frames[1:])
     print(f'deconvs: {port:.3f} ms a frame with matmul + K6, {library:.3f} '
           f'ms with F.conv_transpose2d ({args.frames} frames each, in turn, '
           'wall clock)')

@@ -50,6 +50,7 @@ from jmodt_torch.models.rcnn import masked_bidirectional_softmax
 from jmodt_torch.ops import kernels
 from jmodt_torch.ops.geometry import boxes_center_dist_affinity
 from jmodt_torch.ops.rotated_iou import boxes_iou3d
+from jmodt_torch.utils.graphs import Section
 from jmodt_torch.utils.trace import span, spanned
 
 _DIM_X = 10   # [x, y, z, h, w, l, ry, vx, vy, vz]
@@ -444,6 +445,13 @@ def make_batched_tracker_step(link_head: nn.Module, t_miss: int = 2,
             upload(x, dev, torch.float32)
             for x in (det_boxes, det_scores, det_feats))
         det_mask = upload(det_mask, dev, torch.bool)
+        return section(state, frame_id, det_boxes, det_scores, det_feats,
+                       det_mask)
+
+    def body(state: TrackerState, frame_id, det_boxes, det_scores,
+             det_feats, det_mask):
+        """The step after its uploads: a CUDA graph section
+        (`utils/graphs.py`), replayed on the card."""
         n_seq, tcap = state.tid.shape
         ndet = det_boxes.shape[1]
 
@@ -574,6 +582,7 @@ def make_batched_tracker_step(link_head: nn.Module, t_miss: int = 2,
                       'det_idx': det_idx, 'emit': emit}
         return new_state, output
 
+    section = Section('tracker', body, [link_head, se_head])
     return step
 
 
