@@ -6,6 +6,7 @@
     python3 chip_smoke.py --points-parallel  # phases 1 and 17 alone
     python3 chip_smoke.py --device-frame     # phases 1 and 18 alone
     python3 chip_smoke.py --graphs           # phases 1 and 19 alone
+    python3 chip_smoke.py --ball-query       # phases 1 and 20 alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -13,9 +14,10 @@ Phases, in order; any failure exits non-zero:
 2. kernels  one frame of the detection step records the inputs each kernel
             wrapper gets on the main path; every kernel (K1 FPS, K2 batched
             FPS, K3 three-NN, K4 grouped gather-MLP-max, K6 depth-to-space
-            at the four NonOverlapDeconv levels) is then run on those
-            inputs and held against its plain PyTorch version: FPS and 3-NN
-            indices equal, 3-NN distances within 1e-5 relative, K4 within
+            at the four NonOverlapDeconv levels, the ball query at RPN
+            levels 0-3 and RCNN sa_0-1) is then run on those inputs and
+            held against its plain PyTorch version: FPS, ball-query and
+            3-NN indices equal, 3-NN distances within 1e-5 relative, K4 within
             1e-4 of the output's scale, K6 equal bit for bit.  K1's
             cluster plan (blocks x threads x points a thread) and us a step
             are printed per call, and K3's plan (lanes a query, queries a
@@ -138,11 +140,11 @@ Phases, in order; any failure exits non-zero:
             from seed 0 and link / se heads from seed 1, saved as a port
             .pth and read back by `--ckpt`.  Stage 1: each kernel must
             launch its detection step count (K1 4 / K2 2 / K3 4 / K4 8 /
-            K5 0 / K6 4) on every frame of the CLI (the launch gates
-            below); every kernel call of frame 1 held against its plain
-            version with phase 2's tolerances; the txt and feat files equal
-            byte for byte to those of a direct make_detection_step run on
-            the same collated batches; the recall counters equal to a CPU
+            K5 0 / K6 4 / ball query 6) on every frame of the CLI (the
+            launch gates below); every kernel call of frame 1 held against
+            its plain version with phase 2's tolerances; the txt and feat
+            files equal byte for byte to those of a direct
+            make_detection_step run on the same collated batches; the recall counters equal to a CPU
             recount of the same outputs; a finite AP; `rotate_iou_eval` on
             the card within 1e-6 of scale of the CPU's (every criterion)
             and the AP dict equal to the one computed on the CPU.  Stage 2
@@ -289,6 +291,20 @@ Phases, in order; any failure exits non-zero:
             kernel nodes of each frame's replayed graphs equal to the
             eager frame's launches; K5 from its FPS grid's start to its
             consumer grid's end, replayed and eager.
+20. ball    the ball-query kernel (csrc/ball_query.cu) bit-equal to the
+    query   plain `ball_query_multi` on the card: RPN level 0 at B = 1, 4
+            and 8, levels 1-3 at B = 8 (centres by FPS of synthetic
+            frames; phase 2 holds the RCNN's calls, B = 100, nsample 64,
+            and `--ball-query` alone the joint frame's recorded calls as
+            phase 2 does); and at its edges (N not a multiple of 32 or of the tile, empty
+            balls, balls short of nsample, clouds crowded on the r^2
+            boundary, 5 warps a block, four scales, N = M = 1, balls full
+            in the first tile).  Each RPN call timed against the
+            plain version, with its bound and plan, K5 beside it.  Then 4
+            joint frames (Config(), RPN.MEGA_SA, bfloat16) eager and 4
+            replayed with the kernel, every output bit-equal to the same
+            frames with the plain route on the card; the kernel 3 times an
+            eager frame and in each replayed frame's graphs.
 
 Launch gates (phases 3, 6, 8, 13, 15, 16): a frame's kernels are counted
 twice.  `kernels.launches` counts the wrapper calls of a frame that runs
@@ -351,11 +367,12 @@ ROTATE_BYTES = 100 << 20        # twice the H100's 50 MB L2
 # frames of a batch at once; N2 (lap) and N3 (kalman_predict) the
 # tracker's assignment and predict of all its streams.
 PER_FRAME = {'fps': 4, 'fps_batched': 2, 'three_nn': 4,
-             'grouped_gather_mlp_max': 8, 'depth_to_space': 4, 'nms': 3}
+             'grouped_gather_mlp_max': 8, 'depth_to_space': 4, 'nms': 3,
+             'ball_query': 6}
 PER_FRAME_JOINT = {'fps': 1, 'fps_batched': 2, 'three_nn': 4,
                    'grouped_gather_mlp_max': 2, 'sa_level': 3,
                    'depth_to_space': 4, 'nms': 3, 'lap': 1,
-                   'kalman_predict': 1}
+                   'kalman_predict': 1, 'ball_query': 3}
 KERNELS = [
     dict(name='fps', counter='fps', source='jmodt_torch/csrc/fps.cu',
          replaces='jmodt_tpu/ops/pallas/fps.py:63'),
@@ -374,6 +391,10 @@ KERNELS = [
     dict(name='depth_to_space', counter='depth_to_space',
          source='jmodt_torch/csrc/depth_to_space.cu',
          replaces='jmodt_tpu/ops/pallas/depth_to_space.py:87'),
+    # no Pallas kernel: the JAX package's query is plain XLA
+    dict(name='ball_query', counter='ball_query',
+         source='jmodt_torch/csrc/ball_query.cu',
+         replaces='jmodt_tpu/ops/grouping.py:107'),
 ]
 # the kernels of the JAX package's device loops (no Pallas counterpart):
 # `replaces` names the loop's function; phase 18 holds them to their plain
@@ -399,18 +420,18 @@ GRAD_TOL = 1e-4
 # phase 10: kernel launches of one backbone forward under autograd
 PER_GRAD = {'fps': 4, 'fps_batched': 0, 'three_nn': 4,
             'grouped_gather_mlp_max': 0, 'sa_level': 0, 'depth_to_space': 4,
-            'nms': 0, 'lap': 0, 'kalman_predict': 0}
+            'nms': 0, 'lap': 0, 'kalman_predict': 0, 'ball_query': 4}
 GRAD_IMG_HW = (96, 320)
 # phases 11-12: kernel launches of one training step.  B >= 2 clouds of at
 # most 1024 points take K2, so RPN levels 2-3 run K2 beside RCNN sa_0-1
 PER_STEP_FINETUNE = {'fps': 2, 'fps_batched': 4, 'three_nn': 4,
                      'grouped_gather_mlp_max': 6, 'sa_level': 0,
                      'depth_to_space': 4, 'nms': 2, 'lap': 0,
-                     'kalman_predict': 0}
+                     'kalman_predict': 0, 'ball_query': 6}
 PER_STEP_FULL = {'fps': 2, 'fps_batched': 4, 'three_nn': 4,
                  'grouped_gather_mlp_max': 0, 'sa_level': 0,
                  'depth_to_space': 4, 'nms': 2, 'lap': 0,
-                 'kalman_predict': 0}
+                 'kalman_predict': 0, 'ball_query': 6}
 K6_BACKWARD_FULL = 4
 TRAIN_PAIRS = 4
 TRAIN_STEPS = 3
@@ -530,7 +551,8 @@ def record_kernel_inputs(run):
     deconv_cls = image_backbone.NonOverlapDeconv
     originals = (pointnet2.farthest_point_sample, pointnet2.three_nn,
                  pointnet2.sa_level_fused, fused_sa.grouped_gather_mlp_max,
-                 image_backbone.depth_to_space, deconv_cls.forward)
+                 image_backbone.depth_to_space, deconv_cls.forward,
+                 pointnet2.ball_query_multi)
 
     def fps(xyz, npoint):
         before = kernels.launches.copy()
@@ -558,6 +580,7 @@ def record_kernel_inputs(run):
                                           originals[3])
     image_backbone.depth_to_space = spy('depth_to_space', originals[4])
     deconv_cls.forward = deconv
+    pointnet2.ball_query_multi = spy('ball_query', originals[6])
     try:
         with graphs.eager():
             out = run()
@@ -565,8 +588,20 @@ def record_kernel_inputs(run):
     finally:
         (pointnet2.farthest_point_sample, pointnet2.three_nn,
          pointnet2.sa_level_fused, fused_sa.grouped_gather_mlp_max,
-         image_backbone.depth_to_space, deconv_cls.forward) = originals
+         image_backbone.depth_to_space, deconv_cls.forward,
+         pointnet2.ball_query_multi) = originals
     return (calls, deconvs), out
+
+
+def ball_query_work(radii, nsamples, xyz, new_xyz):
+    """(float32 operations, bytes) of a ball query on these inputs: 13 a
+    measured pair for its d2 and one a scale for its compare
+    (`scan_pairs`); the clouds and centres read once, the indices written
+    once."""
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    flops = scan_pairs(xyz, new_xyz, radii, nsamples) * (13 + len(radii))
+    return flops, 12.0 * b * (n + m) + 4.0 * b * m * sum(nsamples)
 
 
 def fps_batched_with(xyz, npoint, warps):
@@ -588,7 +623,8 @@ def check_kernels(recorded, per_frame, timed=True):
     (True: all), its kernel, plain and library times and its bound.
     Returns {kernel name: aggregate over the frame's calls}."""
     from jmodt_torch.ops import depth_to_space as d2s
-    from jmodt_torch.ops import fused_sa, interpolate, kernels, sampling
+    from jmodt_torch.ops import (fused_sa, grouping, interpolate, kernels,
+                                 sampling)
     calls, deconvs = recorded
     agg = {}
     timed_names = set(per_frame) if timed is True else set(timed or ())
@@ -659,6 +695,26 @@ def check_kernels(recorded, per_frame, timed=True):
                             queries=plan.queries, threads=plan.threads)
                 extra = (f' {plan.lanes} lanes a query, {plan.queries} '
                          f'queries a thread, {plan.threads} threads')
+            elif name == 'ball_query':
+                radii, nsamples, xyz, new_xyz = args
+                b, n, _ = xyz.shape
+                m = new_xyz.shape[1]
+                fns = (grouping.ball_query_multi,
+                       grouping.ball_query_multi_plain, None)
+                reps = (10, 2, 0)
+                check(all(torch.equal(g, w) for g, w in
+                          zip(fns[0](*args), fns[1](*args))),
+                      f'ball_query B={b} {n}->{m}: indices differ')
+                err = 0.0
+                flops, nbytes = ball_query_work(*args)
+                plan = grouping.ball_query_plan(b, n, m, nsamples)
+                shape = (f'B={b} {n}->{m} r {"/".join(map(str, radii))} S '
+                         f'{"/".join(map(str, nsamples))}')
+                tiles = -(-n // plan.tile)
+                call = dict(b=b, n=n, m=m, nsamples=list(nsamples),
+                            warps=plan.warps, tile=plan.tile, tiles=tiles)
+                extra = (f' plan {plan.warps} warps a block, '
+                         f'{tiles} tile(s) of {plan.tile} points')
             elif name == 'depth_to_space':
                 taps, k, r, h0, w0, bias = args
                 b = taps.shape[0]
@@ -902,6 +958,29 @@ def new_state(cfg, device=None, streams=None):
                               device=device)
 
 
+def scan_pairs(xyz, new_xyz, radii, nsamples) -> float:
+    """The (centre, point) pairs a ball query that stops early must
+    measure: per centre, the points up to the nsample-th hit of its slowest
+    scale, or the whole cloud when a ball is not full.  Computed in
+    chunks of centres, as the plain version does."""
+    from jmodt_torch.ops.grouping import pairwise_d2
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    chunk = max(1, min(m, (1 << 24) // (b * n)))
+    total = 0.0
+    for s0 in range(0, m, chunk):
+        d2 = pairwise_d2(new_xyz[:, s0:s0 + chunk], xyz)     # (B, c, N)
+        need = torch.zeros(d2.shape[:2], device=xyz.device)
+        for r, ns in zip(radii, nsamples):
+            cum = torch.cumsum((d2 < r * r).int(), -1)
+            full = cum[..., -1] >= ns
+            last = torch.where(full, torch.argmax((cum >= ns).int(), -1),
+                               n - 1)
+            need = torch.maximum(need, last.float() + 1)
+        total += float(need.sum())
+    return total
+
+
 def k5_work(args, new_xyz):
     """(seconds at peak for the operations, bytes) one K5 call needs on
     these inputs.  The MLP phase's products run on the tensor cores
@@ -910,19 +989,11 @@ def k5_work(args, new_xyz):
     must see: the nsample-th hit of the slowest scale, or the whole cloud
     when a ball is not full.  Also returns the operations' seconds were
     they all float32 FMAs."""
-    from jmodt_torch.ops.grouping import pairwise_d2
     xyz, feats, npoint, radii, nsamples, folded = args
     b, n, _ = xyz.shape
     c = 0 if feats is None else feats.shape[-1]
-    d2 = pairwise_d2(new_xyz, xyz)                           # (B, M, N)
-    need = torch.zeros(b, npoint, device=xyz.device)
-    for r, ns in zip(radii, nsamples):
-        cum = torch.cumsum((d2 < r * r).int(), -1)
-        full = cum[..., -1] >= ns
-        last = torch.where(full, torch.argmax((cum >= ns).int(), -1), n - 1)
-        need = torch.maximum(need, last.float() + 1)
     flops = 9.0 * b * n * (npoint - 1)                       # FPS
-    flops += float(need.sum()) * (13 + len(radii))           # ball query
+    flops += scan_pairs(xyz, new_xyz, radii, nsamples) * (13 + len(radii))
     nbytes = 12.0 * b * n + 4.0 * b * n * c + 16.0 * b * npoint
     mma = 0.0
     for ns, layers in zip(nsamples, folded):
@@ -3728,6 +3799,214 @@ def graphs_phase() -> dict:
     return {'k5_eager': k5e, 'k5_replayed': k5r}
 
 
+# ----------------------------------------------------------------- phase 20
+
+BQ_FRAMES = 4           # joint frames, kernel route against plain route
+
+
+def bq_cloud(rng, b, n, span=(60.0, 4.0, 70.0)):
+    """B KITTI-scale clouds of n points (x in [-30, 30], y in [-1, 3], z in
+    [0, 70] by default), float32 on the card."""
+    lo = np.array([-span[0] / 2, -1.0, 0.0], np.float32)
+    pts = rng.rand(b, n, 3).astype(np.float32) * np.float32(span) + lo
+    return torch.from_numpy(pts).cuda()
+
+
+def bq_same(args):
+    """Whether the kernel's indices equal the plain version's, every
+    scale."""
+    from jmodt_torch.ops import grouping
+    got = grouping.ball_query_multi(*args)
+    want = grouping.ball_query_multi_plain(*args)
+    return all(g.dtype == torch.int32 and torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
+def bq_shapes(cfg):
+    """The RPN's calls: level 0 at B = 1, 4 and 8, levels 1-3 at B = 8
+    (centres by FPS of synthetic frames, as the model takes them).  The
+    RCNN's calls (B = 100) are phase 2's recorded ones."""
+    from jmodt_torch.data.synthetic import make_eval_frame
+    from jmodt_torch.ops import sampling
+    sa = cfg.RPN.SA_CONFIG
+    clouds = torch.from_numpy(np.concatenate([
+        make_eval_frame(seed, cfg)['pts_input'][..., :3]
+        for seed in range(8)])).cuda().contiguous()
+    out = []
+    for b in (1, 4, 8):
+        xyz = clouds[:b].contiguous()
+        new = sampling.gather_xyz(
+            xyz, sampling.farthest_point_sample(xyz, sa.NPOINTS[0]))
+        out.append((f'RPN level 0, B={b}',
+                    (tuple(sa.RADIUS[0]), tuple(sa.NSAMPLE[0]), xyz, new)))
+        if b == 8:
+            for k in range(1, len(sa.NPOINTS)):
+                xyz = new
+                new = sampling.gather_xyz(
+                    xyz, sampling.farthest_point_sample(xyz, sa.NPOINTS[k]))
+                out.append((f'RPN level {k}, B=8',
+                            (tuple(sa.RADIUS[k]), tuple(sa.NSAMPLE[k]), xyz,
+                             new)))
+    return out
+
+
+def bq_edges(rng):
+    """Inputs at the kernel's edges, each held against the plain
+    version."""
+    from jmodt_torch.data.synthetic import boundary_cloud
+    out = []
+    xyz = bq_cloud(rng, 2, 1000)
+    out.append(('N=1000, not a multiple of 32', ((0.5, 4.0), (16, 32), xyz,
+                                                 xyz[:, ::4].contiguous())))
+    xyz = bq_cloud(rng, 1, 16384 + 17)
+    out.append(('N=16401, not a multiple of the tile',
+                ((0.1, 0.5), (16, 32), xyz, xyz[:, ::4].contiguous())))
+    xyz = bq_cloud(rng, 2, 4096)
+    new = xyz[:, ::8].clone()
+    new[:, ::2] += 1000.0
+    out.append(('empty balls (every other centre 1 km away)',
+                ((0.5, 2.0), (16, 32), xyz, new)))
+    out.append(('balls short of nsample (sparse cloud)',
+                ((0.5, 1.0), (32, 64), xyz, xyz[:, ::8].contiguous())))
+    for r, ns in ((0.1, 16), (0.5, 32), (0.2, 64)):
+        xyz, new = (torch.from_numpy(a).cuda()
+                    for a in boundary_cloud(rng, 2, 64, 256, r))
+        out.append((f'256 points a centre on the r^2 boundary, r={r}',
+                    ((r, r * 1.0000001), (ns, 4 * ns), xyz, new)))
+    xyz = bq_cloud(rng, 2, 20000)
+    out.append(('M=5: five warps a block, tiles of 640 points',
+                ((0.5, 4.0), (16, 32), xyz, xyz[:, :5].contiguous())))
+    xyz = bq_cloud(rng, 2, 3000, span=(10.0, 4.0, 10.0))
+    out.append(('four scales, nsample 1 / 3 / 64 / 100',
+                ((0.3, 1.0, 2.0, 5.0), (1, 3, 64, 100), xyz,
+                 xyz[:, ::10].contiguous())))
+    xyz = bq_cloud(rng, 1, 1)
+    out.append(('N=1, M=1', ((0.1,), (16,), xyz, xyz.clone())))
+    xyz = bq_cloud(rng, 1, 16384, span=(1.0, 1.0, 1.0))
+    out.append(('every ball full in the first tile',
+                ((0.5, 0.9), (16, 32), xyz, xyz[:, ::4].contiguous())))
+    return out
+
+
+def bq_joint_runs(cfg, route):
+    """BQ_FRAMES joint frames, eager then replayed (`graph_parity.run`),
+    with the ball query's kernel route or, for `route` 'plain', its plain
+    route on the card: the same weights and inputs."""
+    from jmodt_torch.models import pointnet2
+    from jmodt_torch.ops import grouping
+    from jmodt_torch.tools import graph_parity
+    from jmodt_torch.utils import graphs
+    joint, record, make_state = graph_parity.build(cfg, None, 'cuda')
+    inputs = graph_parity.frames_of(cfg, BQ_FRAMES, None, True)
+    orig = pointnet2.ball_query_multi
+    if route == 'plain':
+        pointnet2.ball_query_multi = grouping.ball_query_multi_plain
+    try:
+        with graphs.eager():
+            eager = graph_parity.run(joint, record, make_state, inputs)
+        replayed = graph_parity.run(joint, record, make_state, inputs,
+                                    on_card=True)
+    finally:
+        pointnet2.ball_query_multi = orig
+    return eager, replayed
+
+
+def bq_frames_equal(what, got, want):
+    """Every output tensor of each frame of `got` bit-equal to `want`'s."""
+    from jmodt_torch.tools.graph_parity import _leaves
+    n = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        ga, gb = dict(_leaves(a['got'])), dict(_leaves(b['got']))
+        check(ga.keys() == gb.keys(), f'{what} frame {i}: outputs differ')
+        for k, t in ga.items():
+            check(t.dtype == gb[k].dtype and torch.equal(t, gb[k]),
+                  f'{what} frame {i}: {k} differs')
+            n += 1
+    return n
+
+
+def ball_query_phase(frames, alone=False) -> dict:
+    """Phase 20: the ball-query kernel bit-equal to the plain version on
+    the RPN's calls and at its edges, timed beside the plain version and
+    K5; then the joint frame (Config(), RPN.MEGA_SA, bfloat16) eager and
+    replayed with the kernel route, bit-equal to the same frames with the
+    plain route.  Phase 2 holds and times the RCNN's calls; `alone` (no
+    phase 2 in the run) holds and times the joint frame's recorded calls
+    as phase 2 does."""
+    from jmodt_torch.ops import grouping, sa_level
+    from jmodt_torch.tools.graph_parity import replay_only
+    t0 = time.perf_counter()
+    cfg = mega_cfg('bfloat16')
+    joint = build_joint(cfg)
+    frame = frames[3]
+    recorded, _ = record_kernel_inputs(
+        lambda: joint(new_state(cfg), 1, frame['pts_input'], frame['img'],
+                      frame['pts_xy']))
+    del joint
+    calls = recorded[0]['ball_query']
+    check(len(calls) == PER_FRAME_JOINT['ball_query'],
+          f'ball_query: {len(calls)} calls a joint frame')
+    if alone:
+        check_kernels(recorded, {'ball_query': PER_FRAME_JOINT['ball_query']})
+    rows = []
+    for what, args in bq_shapes(cfg):
+        radii, nsamples, xyz, new_xyz = args
+        check(bq_same(args), f'ball_query {what}: indices differ')
+        b, n, _ = xyz.shape
+        m = new_xyz.shape[1]
+        plan = grouping.ball_query_plan(b, n, m, nsamples)
+        ms = cuda_ms(grouping.ball_query_multi, args, 20)
+        plain = cuda_ms(grouping.ball_query_multi_plain, args, 2)
+        flops, nbytes = ball_query_work(*args)
+        bms, by = bound_ms(flops / PEAK_F32_FLOPS, nbytes)
+        rows.append(dict(call=what, b=b, n=n, m=m, ms=ms[0],
+                         plain_ms=plain[0], bound_ms=bms,
+                         pairs=scan_pairs(xyz, new_xyz, radii, nsamples)))
+        print(f'[20 ball query] {what} {n}->{m} r '
+              f'{"/".join(map(str, radii))} S '
+              f'{"/".join(map(str, nsamples))}: equal to plain; kernel '
+              f'{show(ms)}  plain {show(plain)}  bound {bms:.4f} ms ({by}); '
+              f'plan {plan.warps} warps a block, {-(-n // plan.tile)} '
+              f'tile(s) of {plan.tile} points; '
+              f'{rows[-1]["pairs"]:.4g} pairs measured', flush=True)
+    edges = bq_edges(np.random.RandomState(20))
+    for what, args in edges:
+        check(bq_same(args), f'ball_query {what}: indices differ')
+    print(f'[20 ball query] {len(edges)} edge cases equal to plain: '
+          + '; '.join(w for w, _ in edges), flush=True)
+    k5 = [cuda_ms(sa_level.sa_level_fused, args, 10)
+          for args in recorded[0]['sa_level']]
+    print('[20 ball query] K5 beside it, L1 / L2 / L3: '
+          + ' / '.join(show(t) for t in k5), flush=True)
+
+    runs = {route: bq_joint_runs(cfg, route) for route in ('kernel', 'plain')}
+    (ke, kr), (pe, pr) = runs['kernel'], runs['plain']
+    n = bq_frames_equal('eager', ke, pe)
+    n += bq_frames_equal('replayed', kr, pr)
+    for i, (e, r) in enumerate(zip(ke, kr)):
+        check(e['launches'].get('ball_query', 0)
+              == PER_FRAME_JOINT['ball_query'],
+              f'joint eager frame {i}: ball_query launched '
+              f'{e["launches"].get("ball_query", 0)} times')
+        if replay_only(r['graphs']):
+            check(r['replayed'].get('ball_query', 0)
+                  == PER_FRAME_JOINT['ball_query'],
+                  f'joint replayed frame {i}: its graphs launch '
+                  f'{r["replayed"]}')
+    for i, (e, r) in enumerate(zip(pe, pr)):
+        check('ball_query' not in e['launches'],
+              f'plain route frame {i}: launched {e["launches"]}')
+    check(any(replay_only(r['graphs']) for r in kr),
+          'ball_query: no joint frame replayed alone')
+    print(f'[20 ball query] joint frame (Config(), RPN.MEGA_SA, bfloat16), '
+          f'{BQ_FRAMES} frames eager and {BQ_FRAMES} replayed: every '
+          f'output ({n} tensors) bit-equal to the plain route\'s; '
+          f'{PER_FRAME_JOINT["ball_query"]} kernel launches an eager frame '
+          'and in each replayed frame\'s graphs '
+          f'({time.perf_counter() - t0:.1f} s)', flush=True)
+    return {'per_call': rows, 'k5_ms': [t[0] for t in k5]}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3765,6 +4044,10 @@ def main(argv) -> int:
         return 0
     if argv == ['--graphs']:            # phase 19 alone
         graphs_phase()
+        print_device()
+        return 0
+    if argv == ['--ball-query']:        # phase 20 alone
+        ball_query_phase(frames, alone=True)
         print_device()
         return 0
     if argv:
@@ -3956,6 +4239,7 @@ def main(argv) -> int:
     pp = points_parallel_phase(dp)
     df = device_frame_phase(frames)
     graphs_phase()
+    bq = ball_query_phase(frames)
     agg.update(df['agg'])
 
     rows = []
@@ -4008,6 +4292,9 @@ def main(argv) -> int:
             row['ms_train_step'] = tr['ms']
         if k['name'] == 'depth_to_space':
             row['backward_launches_train_full_step'] = full['k6_backward']
+        if k['name'] == 'ball_query':
+            row['per_call_phase20'] = bq['per_call']
+            row['k5_ms_beside'] = bq['k5_ms']
         if k['name'] == 'nms':
             row['per_call_train'] = df['train_nms']['per_call']
             row['ms_train_step'] = df['train_nms']['ms']

@@ -14,10 +14,9 @@
 //     pooled[:, cols of s] = max_S relu(... relu(table[nbr] + b1 - cxw)
 //                                         W2 + b2 ... WL + bL)
 //
-// d2 = (|q|^2 + |p|^2) - 2 q.p with each dot product and squared norm an
-// fma chain whose steps are computed in double and rounded once to float:
-// the bits of jmodt_torch/ops/grouping.py::pairwise_d2, so the kernel
-// picks the same neighbours as the plain version even at r^2.
+// d2 and the query's warp scan are ball_query.cuh's, which the ball-query
+// kernel shares: the bits of jmodt_torch/ops/grouping.py::pairwise_d2, so
+// the kernel picks the same neighbours as the plain version even at r^2.
 //
 // What bounds it on an H100: at the main path's three levels the work is
 // small (about 1 GFLOP of MLP a level, a few MB of tables); the FPS is
@@ -62,29 +61,26 @@
 // Everything but the MLP products is float32 FMA or exact float32.
 #include <cmath>
 
+#include "ball_query.cuh"
 #include "common.cuh"
 #include "fps.cuh"
 #include "grouped_mlp.cuh"
 
 namespace {
 
-constexpr int kMaxScales = 4;
 constexpr int kSaThreads = kThreads;  // 256: K4's block, 8 query warps
 constexpr int kSaWarps = kSaThreads / 32;
 constexpr int kTabTile = 32;   // table rows and columns per tile
 constexpr int kTabK = 32;      // reduction depth of one staged tile
 constexpr int kTabSmem = 4 * kTabK * (2 * kTabTile + 4);
-constexpr int kScanBlocks = 4;  // 32-point blocks measured at once
 
 struct Scales {
-  float r2[kMaxScales];
-  int ns[kMaxScales];
+  BallScales q;                 // r^2, nsample, nbr (B, M, S) int32
   int c1[kMaxScales];
   const float* w1[kMaxScales];  // (3 + C, C1)
   const float* b1[kMaxScales];  // (C1,)
   float* table[kMaxScales];     // (B, N, C1)
   float* cxw[kMaxScales];       // (B, M, C1)
-  int* nbr[kMaxScales];         // (B, M, S)
   Layers mlp[kMaxScales];       // layers 2..L, dims from C1
   int n_rest[kMaxScales];       // layers in mlp
   int col[kMaxScales];          // first column in pooled
@@ -102,18 +98,6 @@ struct Tickets {
   int unit_start[kMaxScales + 1];
   int group, total;
 };
-
-// float32 a * b + c with one rounding of the exact product sum to double
-// and one to float: the plain version's `_fma`
-__device__ __forceinline__ float fma_d(float a, float b, float c) {
-  return __double2float_rn(
-      __dadd_rn(__dmul_rn(static_cast<double>(a), static_cast<double>(b)),
-                static_cast<double>(c)));
-}
-
-__device__ __forceinline__ float sq_norm(float x, float y, float z) {
-  return fma_d(z, z, fma_d(y, y, __fmul_rn(x, x)));
-}
 
 __device__ __forceinline__ int load_acquire(const int* p) {
   int v;
@@ -236,48 +220,19 @@ __device__ __forceinline__ void query_centre(const float* p, int j0, int n,
   }
 
   const float sqq = sq_norm(qx, qy, qz);
-  const unsigned below = (1u << lane) - 1u;
-  int cnt[kMaxScales], first[kMaxScales];
-  int open = nscales;  // scales still short of S hits (warp-uniform)
-#pragma unroll
-  for (int s = 0; s < kMaxScales; ++s) cnt[s] = first[s] = 0;
-  for (int base = 0; base < n && open > 0; base += 32 * kScanBlocks) {
+  BallScan st = ball_scan_start(nscales);
+  for (int base = 0; base < n && st.open > 0; base += 32 * kScanBlocks) {
     // kScanBlocks independent d2 chains, then their hits in index order
     float d2[kScanBlocks];
 #pragma unroll
     for (int u = 0; u < kScanBlocks; ++u) {
       const int i = min(base + 32 * u + lane, n - 1);
       const float px = p[3 * i], py = p[3 * i + 1], pz = p[3 * i + 2];
-      const float dot = fma_d(qz, pz, fma_d(qy, py, __fmul_rn(qx, px)));
-      d2[u] = __fsub_rn(__fadd_rn(sqq, sq_norm(px, py, pz)),
-                        __fmul_rn(2.0f, dot));
+      d2[u] = ball_d2(qx, qy, qz, sqq, px, py, pz, sq_norm(px, py, pz));
     }
-#pragma unroll
-    for (int u = 0; u < kScanBlocks; ++u) {
-      const int i = base + 32 * u + lane;
-#pragma unroll
-      for (int s = 0; s < kMaxScales; ++s) {
-        const int ns = sc.ns[s];
-        if (s >= nscales || cnt[s] >= ns) continue;  // warp-uniform
-        const bool hit = i < n && d2[u] < sc.r2[s];
-        const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-        if (ballot == 0u) continue;
-        if (cnt[s] == 0) first[s] = base + 32 * u + __ffs(ballot) - 1;
-        const int rank = cnt[s] + __popc(ballot & below);
-        if (hit && rank < ns)
-          sc.nbr[s][static_cast<size_t>(centre) * ns + rank] = i;
-        cnt[s] += __popc(ballot);
-        if (cnt[s] >= ns) --open;
-      }
-    }
+    ball_rank(d2, base, n, nscales, sc.q, centre, st);
   }
-  for (int s = 0; s < nscales; ++s) {
-    const int ns = sc.ns[s];
-    const int have = min(cnt[s], ns);
-    const int fill = have > 0 ? first[s] : 0;
-    for (int slot = have + lane; slot < ns; slot += 32)
-      sc.nbr[s][static_cast<size_t>(centre) * ns + slot] = fill;
-  }
+  ball_pad(st, nscales, sc.q, centre);
 }
 
 // The consumer grid.  counters: [0] the next ticket, [1] table tiles done,
@@ -328,13 +283,13 @@ __global__ void __launch_bounds__(kSaThreads, 2)
     int s = 0;
     while (r >= tk.unit_start[s + 1]) ++s;
     const int u = r - tk.unit_start[s];
-    const int tm = kRows / sc.ns[s];
+    const int tm = kRows / sc.q.ns[s];
     const int mblk = c0 / tm + u / sc.split[s];
     if (mblk * tm >= c_end) continue;  // past the last centre
     wait_count(tables_done, tab_end);
     wait_count(queries_done + b * tk.nchunks + k, tk.qunits);
-    grouped_mlp_block<true>(smem, sc.table[s], sc.nbr[s], sc.cxw[s],
-                            sc.b1[s], n, m, sc.ns[s], sc.n_rest[s],
+    grouped_mlp_block<true>(smem, sc.table[s], sc.q.nbr[s], sc.cxw[s],
+                            sc.b1[s], n, m, sc.q.ns[s], sc.n_rest[s],
                             sc.mlp[s], pooled + sc.col[s], width, mblk, b,
                             u % sc.split[s], sc.split[s]);
   }
@@ -397,14 +352,14 @@ JMODT_API int jmodt_sa_level(
           reinterpret_cast<size_t>(weights[s * (kMaxLayers + 1) + l - 1]) %
                   16 != 0)
         return cudaErrorInvalidValue;
-    sc.r2[s] = radii2[s];
-    sc.ns[s] = ns;
+    sc.q.r2[s] = radii2[s];
+    sc.q.ns[s] = ns;
     sc.c1[s] = d[1];
     sc.w1[s] = weights[s * (kMaxLayers + 1)];
     sc.b1[s] = biases[s * (kMaxLayers + 1)];
     sc.table[s] = tables[s];
     sc.cxw[s] = cxws[s];
-    sc.nbr[s] = nbrs[s];
+    sc.q.nbr[s] = nbrs[s];
     sc.n_rest[s] = n_rest;
     for (int l = 0; l < n_rest; ++l) {
       sc.mlp[s].w[l] = weights[s * (kMaxLayers + 1) + l + 1];

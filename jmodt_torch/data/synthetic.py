@@ -7,6 +7,7 @@ in the same order, so a seed gives the same arrays in both packages
 KITTI tracking tree.  Car-shaped point clusters on a ground plane, a pinhole
 projection for `pts_xy`, a random image, per-point RPN labels, and (prev,
 next) frame pairs with persistent track ids and small motion for training.
+`boundary_cloud` makes ball-query inputs crowded on the r^2 boundary.
 """
 
 from __future__ import annotations
@@ -193,6 +194,24 @@ def make_eval_frame(seed: int, cfg: Config, npoints: Optional[int] = None,
                 pts_xy=scene['pts_xy'][None],
                 gt_boxes3d=scene['gt_boxes3d'][None],
                 gt_valid=scene['gt_valid'][None])
+
+
+def boundary_cloud(rng: np.random.RandomState, b: int, m: int, per: int,
+                   r: float):
+    """Clouds crowded on the r^2 boundary: per centre (KITTI-scale
+    coordinates, where d2's cancellation leaves few bits) `per` points at
+    distance r along random directions, rounded to float32, a quarter of
+    them repeated; the points of all centres interleaved, so that every
+    ball's hits spread over the cloud.  Returns (xyz (b, m * per, 3),
+    new_xyz (b, m, 3)) float32."""
+    q = np.stack([rng.uniform(-30, 30, (b, m)), rng.uniform(-1, 3, (b, m)),
+                  rng.uniform(0, 70, (b, m))], -1)
+    u = rng.randn(b, m, per, 3)
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    p = (q[:, :, None] + r * u).astype(np.float32)
+    p[:, :, per * 3 // 4:] = p[:, :, :per // 4]
+    xyz = np.ascontiguousarray(p.transpose(0, 2, 1, 3).reshape(b, -1, 3))
+    return xyz, q.astype(np.float32)
 
 
 def write_synthetic_kitti_tree(root: str, cfg: Config,

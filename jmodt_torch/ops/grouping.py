@@ -12,13 +12,22 @@ two packages pick the same points even at the r^2 boundary, where the
 cancellation in this expression leaves only a few bits.  The fma steps are
 computed in float64 and rounded to float32 (a product of two float32 values
 is exact in float64), which gives the same bits on the CPU and the GPU.
+
+On CUDA tensors `ball_query_multi` launches the ball-query kernel
+(`jmodt_torch/csrc/ball_query.cu`), every scale in one pass, bit-equal to
+the plain version; on CPU tensors it runs the plain version,
+`ball_query_multi_plain`.  The JAX package has no Pallas kernel for it.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import ctypes
+from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from jmodt_torch.ops import kernels
 
 # cap on B * chunk * N distance elements per block
 _D2_BUDGET = 16 * 1024 * 1024
@@ -68,14 +77,11 @@ def _first_k_in_radius(d2: torch.Tensor, r2: float, nsample: int
     return torch.where(idx >= n, fallback, idx).to(torch.int32)
 
 
-def ball_query_multi(radii: Sequence[float], nsamples: Sequence[int],
-                     xyz: torch.Tensor, new_xyz: torch.Tensor
-                     ) -> Tuple[torch.Tensor, ...]:
-    """Ball query for several (radius, nsample) scales sharing one d2.
-
-    :param xyz: (B, N, 3) all points; :param new_xyz: (B, M, 3) centroids
-    :return: tuple of (B, M, nsamples[i]) int32, one per scale
-    """
+def ball_query_multi_plain(radii: Sequence[float], nsamples: Sequence[int],
+                           xyz: torch.Tensor, new_xyz: torch.Tensor
+                           ) -> Tuple[torch.Tensor, ...]:
+    """`ball_query_multi` as tensor ops: the scales share each chunk's
+    d2."""
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
     chunk = min(max(128, _D2_BUDGET // (b * n)), m)
@@ -85,6 +91,81 @@ def ball_query_multi(radii: Sequence[float], nsamples: Sequence[int],
         for i, (r, ns) in enumerate(zip(radii, nsamples)):
             outs[i].append(_first_k_in_radius(d2, r * r, ns))
     return tuple(torch.cat(o, dim=1) for o in outs)
+
+
+# limits of the CUDA entry (ball_query.cu): scales a launch, warps (one
+# centre each) a block, and points of the next tile each thread holds
+_BQ_MAX_SCALES = 4
+_BQ_MAX_WARPS = 16
+_BQ_STAGE = 4
+
+
+class BallQueryPlan(NamedTuple):
+    warps: int    # centres a block, a warp each
+    tile: int     # points a staged tile
+
+
+def ball_query_plan(b: int, n: int, m: int, nsamples: Sequence[int]
+                    ) -> BallQueryPlan:
+    """The kernel's launch for B clouds of N points and M centres a cloud:
+    up to 16 centres a block, so that the block's warps share each staged
+    tile; the whole cloud as one tile where it fits in the shared memory
+    of two tiles (N <= 4096 at 16 warps), else double-buffered tiles of
+    4 points a thread, as many as the cloud needs.  The CUDA entry sizes
+    the grid and the shared memory from these.  Raises ValueError on what
+    the kernel does not take."""
+    if b < 1 or n < 1 or m < 1:
+        raise ValueError(f'the ball query needs B, N, M >= 1, got B={b}, '
+                         f'N={n}, M={m}')
+    if not 1 <= len(nsamples) <= _BQ_MAX_SCALES:
+        raise ValueError(f'the ball-query kernel takes 1..{_BQ_MAX_SCALES} '
+                         f'scales, got {len(nsamples)}')
+    if any(ns < 1 for ns in nsamples):
+        raise ValueError(f'nsample must be >= 1, got {tuple(nsamples)}')
+    warps = min(_BQ_MAX_WARPS, m)
+    tiled = _BQ_STAGE * 32 * warps
+    return BallQueryPlan(warps, n if n <= 2 * tiled else tiled)
+
+
+def _ball_query_args(radii: Sequence[float], nsamples: Sequence[int],
+                     xyz: torch.Tensor, new_xyz: torch.Tensor,
+                     check=kernels.check_cuda) -> BallQueryPlan:
+    """Check the kernel's arguments with `check` (per tensor) and return
+    its plan; raise ValueError on what the CUDA entry does not take."""
+    b, n = xyz.shape[0], xyz.shape[1]
+    check('xyz', xyz, torch.float32, (b, n, 3))
+    check('new_xyz', new_xyz, torch.float32, (b, None, 3))
+    if new_xyz.device != xyz.device:
+        raise ValueError(f'new_xyz on {new_xyz.device}, xyz on {xyz.device}')
+    if len(radii) != len(nsamples):
+        raise ValueError(f'{len(radii)} radii for {len(nsamples)} nsamples')
+    return ball_query_plan(b, n, new_xyz.shape[1], nsamples)
+
+
+def ball_query_multi(radii: Sequence[float], nsamples: Sequence[int],
+                     xyz: torch.Tensor, new_xyz: torch.Tensor
+                     ) -> Tuple[torch.Tensor, ...]:
+    """Ball query for several (radius, nsample) scales: one launch of the
+    ball-query kernel on CUDA tensors, the plain version on CPU tensors.
+
+    :param xyz: (B, N, 3) all points; :param new_xyz: (B, M, 3) centroids
+    :return: tuple of (B, M, nsamples[i]) int32, one per scale
+    """
+    if not kernels.on_card(xyz):
+        return ball_query_multi_plain(radii, nsamples, xyz, new_xyz)
+    plan = _ball_query_args(radii, nsamples, xyz, new_xyz)
+    b, n, m = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
+    outs = tuple(torch.empty((b, m, ns), dtype=torch.int32,
+                             device=xyz.device) for ns in nsamples)
+    # r^2 as the plain version's `d2 < r * r` compares it: in float32
+    radii2 = np.array([r * r for r in radii], np.float32)
+    ns_arr = np.array(nsamples, np.int32)     # host arrays live past the call
+    ptrs = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
+    kernels.launch('ball_query', 'jmodt_ball_query', xyz.data_ptr(),
+                   new_xyz.data_ptr(), b, n, m, len(outs),
+                   radii2.ctypes.data, ns_arr.ctypes.data, plan.warps,
+                   plan.tile, ptrs, device=xyz.device)
+    return outs
 
 
 def ball_query(radius: float, nsample: int, xyz: torch.Tensor,

@@ -35,7 +35,8 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 _BUILD = Path(__file__).resolve().parents[2] / 'build'
 _SOURCES = ('fps.cu', 'three_nn.cu', 'grouped_gather_mlp.cu',
-            'sa_level.cu', 'depth_to_space.cu', 'nms.cu', 'tracker.cu')
+            'sa_level.cu', 'depth_to_space.cu', 'nms.cu', 'tracker.cu',
+            'ball_query.cu')
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-Xcompiler', '-fPIC')
 # flags of one source on top of _NVCC_FLAGS: N1-N3 must round every product
@@ -60,6 +61,8 @@ _SIGNATURES = {
                        _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
                        ctypes.POINTER(_P), _P, _P, _P, _P, _P),
     'jmodt_depth_to_space': (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    'jmodt_ball_query': (_P, _P, _I, _I, _I, _I, _P, _P, _I, _I,
+                         ctypes.POINTER(_P), _P),
     'jmodt_nms': (_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P),
     'jmodt_nms_iou': (_P, _P, _I, _I, _P, _P),
     'jmodt_lap': (_P, _I, _I, _I, _F, _P, _P, _P),

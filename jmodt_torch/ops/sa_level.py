@@ -30,7 +30,7 @@ from jmodt_torch.ops import kernels
 from jmodt_torch.ops.fused_sa import (Layers, check_weight_aligned,
                                       grouped_gather_mlp_max_plain,
                                       k4_launch_plan)
-from jmodt_torch.ops.grouping import ball_query_multi
+from jmodt_torch.ops.grouping import ball_query_multi_plain
 from jmodt_torch.ops.sampling import (FPS_MAX_CLUSTER,
                                       farthest_point_sample_plain,
                                       fps_launch_plan, gather_xyz)
@@ -73,7 +73,8 @@ def sa_level_fused_plain(xyz: torch.Tensor, feats: Optional[torch.Tensor],
     Returns (new_xyz (B, M, 3), pooled (B, M, sum C_last), idx (B, M))."""
     idx = farthest_point_sample_plain(xyz, npoint)
     new_xyz = gather_xyz(xyz, idx)
-    nbrs = ball_query_multi(tuple(radii), tuple(nsamples), xyz, new_xyz)
+    nbrs = ball_query_multi_plain(tuple(radii), tuple(nsamples), xyz,
+                                  new_xyz)
     catf = _catf(xyz, feats)
     outs = []
     for nbr, layers in zip(nbrs, folded_per_scale):

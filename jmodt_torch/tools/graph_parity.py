@@ -67,7 +67,8 @@ DEVICE_KERNELS = {
     'grouped_gather_mlp_max': 'grouped_gather_mlp_max_kernel',
     'sa_level': 'sa_consumer_kernel', 'depth_to_space': 'd2s_kernel',
     'nms': 'nms_scan_kernel', 'nms_iou': 'nms_iou_kernel',
-    'lap': 'lap_kernel', 'kalman_predict': 'kalman_predict_kernel'}
+    'lap': 'lap_kernel', 'kalman_predict': 'kalman_predict_kernel',
+    'ball_query': 'ball_query_kernel'}
 
 
 def _names(fn: str, name: str) -> bool:

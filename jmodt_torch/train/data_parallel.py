@@ -38,7 +38,7 @@ def cli_rank(device, argv: Sequence[str]) -> None:
 
 # the kernel wrappers `record_kernel_inputs` records, by kernel
 KERNEL_NAMES = ('fps', 'fps_batched', 'three_nn', 'grouped_gather_mlp_max',
-                'sa_level', 'depth_to_space')
+                'sa_level', 'depth_to_space', 'ball_query')
 
 
 def _to_cpu(x):
@@ -62,7 +62,7 @@ def record_kernel_inputs():
     calls = {k: [] for k in KERNEL_NAMES}
     originals = (pointnet2.farthest_point_sample, pointnet2.three_nn,
                  pointnet2.sa_level_fused, fused_sa.grouped_gather_mlp_max,
-                 image_backbone.depth_to_space)
+                 image_backbone.depth_to_space, pointnet2.ball_query_multi)
 
     def fps(xyz, npoint):
         before = kernels.launches.copy()
@@ -85,12 +85,14 @@ def record_kernel_inputs():
     fused_sa.grouped_gather_mlp_max = spy('grouped_gather_mlp_max',
                                           originals[3])
     image_backbone.depth_to_space = spy('depth_to_space', originals[4])
+    pointnet2.ball_query_multi = spy('ball_query', originals[5])
     try:
         yield calls
     finally:
         (pointnet2.farthest_point_sample, pointnet2.three_nn,
          pointnet2.sa_level_fused, fused_sa.grouped_gather_mlp_max,
-         image_backbone.depth_to_space) = originals
+         image_backbone.depth_to_space,
+         pointnet2.ball_query_multi) = originals
 
 
 def run_steps(device, cfg: Config, state: Mapping[str, torch.Tensor],

@@ -275,3 +275,17 @@ def test_launches_read_from_kernel_names():
     assert graph_parity.launches_of(names) == {
         'fps': 1, 'sa_level': 1, 'fps_batched': 1, 'nms': 1,
         'depth_to_space': 1, 'lap': 1}
+
+
+def test_ball_query_launches_read_from_kernel_names():
+    """The ball-query kernel counts as one `ball_query` launch, mangled or
+    demangled, and as no other counter's: no other kernel's name is a
+    part of its name."""
+    names = ['_ZN46_GLOBAL__N__41e383bc_13_ball_query_cu_0d6f797417ball_'
+             'query_kernelEPKfS1_iii10BallScalesii',
+             '(anonymous namespace)::ball_query_kernel(float const*, float '
+             'const*, int, int, int, BallScales, int, int)']
+    assert graph_parity.launches_of(names) == {'ball_query': 2}
+    for key in graph_parity.DEVICE_KERNELS.values():
+        if key != 'ball_query_kernel':
+            assert key not in 'ball_query_kernel'

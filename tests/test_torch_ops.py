@@ -28,6 +28,7 @@ from jmodt_tpu.ops.pallas.grouped_gather_mlp import \
     grouped_gather_mlp_max as jax_ggmm
 from jmodt_tpu.ops.pallas.three_nn import three_nn_pallas
 from jmodt_tpu.ops.roipool3d import roipool3d as jax_roipool3d
+from jmodt_torch.data.synthetic import boundary_cloud
 from jmodt_torch.models.bbox_codec import decode_bbox_target
 from jmodt_torch.ops import grouping, interpolate, nms, rotated_iou, sampling
 from jmodt_torch.ops.fused_sa import (fused_sa_eval,
@@ -198,6 +199,197 @@ def test_ball_query_multi_matches_jax():
                                     _t(new_xyz))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _roi_clouds(rng, rois, n):
+    """RCNN-like inputs: rois clouds of n canonical points in a car-sized
+    box, a third of them repeats (RoI pooling pads short RoIs so)."""
+    pts = (rng.rand(rois, n, 3) * np.array([4.0, 1.6, 1.6]) -
+           np.array([2.0, 0.8, 0.8])).astype(np.float32)
+    pts[:, 2 * n // 3:] = pts[:, :n - 2 * n // 3]
+    return pts
+
+
+@pytest.mark.parametrize('case', ['rcnn_sa0', 'rcnn_sa1', 'boundary',
+                                  'four_scales'])
+def test_ball_query_multi_matches_jax_at_the_kernels_shapes(case):
+    """The plain route, which CPU tensors take and the card's kernel is
+    held to, against the JAX package: the RCNN's nsample 64 on RoI-like
+    clouds, a crowded r^2 boundary at KITTI-scale coordinates, and four
+    scales with nsample 1 to 100."""
+    rng = np.random.RandomState(20)
+    if case == 'rcnn_sa0':
+        xyz = _roi_clouds(rng, 6, 512)
+        new_xyz, radii, nsamples = xyz[:, ::4].copy(), (0.2,), (64,)
+    elif case == 'rcnn_sa1':
+        xyz = _roi_clouds(rng, 6, 128)
+        new_xyz, radii, nsamples = xyz[:, ::4].copy(), (0.4,), (64,)
+    elif case == 'boundary':
+        xyz, new_xyz = boundary_cloud(rng, 2, 8, 64, 0.1)
+        radii, nsamples = (0.1, 0.1000001), (16, 64)
+    else:
+        xyz = _cloud(rng, 2, 600)
+        xyz[:, :300] = xyz[:, :1] + rng.randn(2, 300, 3).astype(np.float32)
+        new_xyz, radii, nsamples = (xyz[:, ::6].copy(), (0.3, 1.0, 2.0, 5.0),
+                                    (1, 3, 64, 100))
+    want = jax_grouping.ball_query_multi(radii, nsamples, xyz, new_xyz)
+    got = grouping.ball_query_multi(radii, nsamples, _t(xyz), _t(new_xyz))
+    for g, w, ns in zip(got, want, nsamples):
+        assert g.dtype == torch.int32 and g.shape == (*new_xyz.shape[:2],
+                                                      ns)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if case == 'boundary':      # the boundary is crowded: hits and misses
+        d2 = grouping.pairwise_d2(_t(new_xyz), _t(xyz))
+        near = (d2 - 0.01).abs() < 1e-3     # a few ulps of |p|^2 ~ 5e3
+        assert int((near & (d2 < 0.01)).sum()) > 100
+        assert int((near & (d2 >= 0.01)).sum()) > 100
+
+
+def test_ball_query_on_the_cpu_takes_the_plain_route():
+    """CPU tensors never reach the kernel: no launch is counted and the
+    result is the plain version's."""
+    from jmodt_torch.ops import kernels
+    rng = np.random.RandomState(21)
+    xyz = _t(_cloud(rng, 2, 300))
+    new_xyz = xyz[:, ::3].contiguous()
+    before = kernels.launches.copy()
+    got = grouping.ball_query_multi((0.5, 4.0), (8, 16), xyz, new_xyz)
+    assert kernels.launches == before
+    want = grouping.ball_query_multi_plain((0.5, 4.0), (8, 16), xyz, new_xyz)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _emulate_kernel(radii, nsamples, xyz, new_xyz):
+    """numpy emulation of the ball-query kernel's schedule on the plain
+    version's d2: centres in blocks of the plan's warps, the cloud in the
+    plan's tiles, each warp ranking 4 x 32 points at a time by a ballot's
+    popcount and stopping once every scale is full, the block leaving at
+    the first tile boundary where all its warps have stopped; misses
+    padded with the first hit."""
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    plan = grouping.ball_query_plan(b, n, m, nsamples)
+    tiles, per_cloud = -(-n // plan.tile), -(-m // plan.warps)
+    d2 = grouping.pairwise_d2(new_xyz, xyz).numpy()
+    r2 = np.array([r * r for r in radii], np.float32)
+    outs = [np.full((b, m, ns), -1, np.int64) for ns in nsamples]
+    tiles_read = 0
+    for blk in range(b * per_cloud):
+        bb, c0 = divmod(blk, per_cloud)
+        centres = range(c0 * plan.warps, min(m, (c0 + 1) * plan.warps))
+        cnt = {c: [0] * len(nsamples) for c in centres}
+        first = {c: [0] * len(nsamples) for c in centres}
+        for t in range(tiles):
+            tiles_read += 1
+            start, end = t * plan.tile, min(n, (t + 1) * plan.tile)
+            for c in centres:
+                for base in range(start, end, 128):
+                    if all(k >= ns for k, ns in zip(cnt[c], nsamples)):
+                        break
+                    for u in range(4):
+                        idx = base + 32 * u + np.arange(32)
+                        ok = idx < end
+                        dd = d2[bb, c, np.minimum(idx, end - 1)]
+                        for s, ns in enumerate(nsamples):
+                            if cnt[c][s] >= ns:
+                                continue
+                            hit = ok & (dd < r2[s])
+                            if not hit.any():
+                                continue
+                            if cnt[c][s] == 0:
+                                first[c][s] = int(idx[hit][0])
+                            rank = cnt[c][s] + np.cumsum(hit) - 1
+                            put = hit & (rank < ns)
+                            outs[s][bb, c, rank[put]] = idx[put]
+                            cnt[c][s] += int(hit.sum())
+            if all(k >= ns for c in centres
+                   for k, ns in zip(cnt[c], nsamples)):
+                break
+        for c in centres:
+            for s, ns in enumerate(nsamples):
+                have = min(cnt[c][s], ns)
+                outs[s][bb, c, have:] = first[c][s] if have else 0
+    return [torch.from_numpy(o.astype(np.int32)) for o in outs], tiles_read
+
+
+@pytest.mark.parametrize('n,m,radii,nsamples', [
+    (1000, 40, (0.5, 4.0), (16, 32)),       # whole cloud, N % 32 != 0
+    (3000, 5, (2.0, 8.0), (16, 32)),        # 5 warps, 5 tiles of 640
+    (2600, 3, (60.0,), (8,)),               # balls full in the first tile
+    (700, 20, (0.3, 1.0, 2.0, 5.0), (1, 3, 64, 100)),
+])
+def test_ball_query_kernel_schedule_matches_the_plain_version(
+        n, m, radii, nsamples):
+    """The kernel's tiles, warp scan and early stop (emulated) pick the
+    plain version's indices; a block whose balls all fill in its first
+    tile reads no other."""
+    rng = np.random.RandomState(n + m)
+    xyz = _cloud(rng, 2, n)
+    xyz[:, : n // 2] = xyz[:, :1] + rng.randn(2, n // 2, 3).astype(
+        np.float32)
+    xyz, new_xyz = _t(xyz), _t(xyz[:, ::(n // m)][:, :m].copy())
+    got, tiles_read = _emulate_kernel(radii, nsamples, xyz, new_xyz)
+    want = grouping.ball_query_multi_plain(radii, nsamples, xyz, new_xyz)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    plan = grouping.ball_query_plan(2, n, m, nsamples)
+    if radii == (60.0,):
+        assert plan.tile < n and tiles_read == 2 * -(-m // plan.warps)
+
+
+def _bq_args():
+    return dict(radii=(0.1, 0.5), nsamples=(16, 32),
+                xyz=torch.zeros(2, 100, 3), new_xyz=torch.zeros(2, 25, 3))
+
+
+@pytest.mark.parametrize('bad,match', [
+    (dict(xyz=torch.zeros(2, 100, 3, dtype=torch.float64)), 'float32'),
+    (dict(xyz=torch.zeros(2, 3, 100).transpose(1, 2)), 'contiguous'),
+    (dict(new_xyz=torch.zeros(3, 25, 3)), 'shape'),
+    (dict(new_xyz=torch.zeros(2, 25, 2)), 'shape'),
+    (dict(radii=(0.1,) * 5, nsamples=(16,) * 5), 'scales'),
+    (dict(nsamples=(16, 0)), 'nsample'),
+    (dict(radii=(0.1,)), 'radii'),
+    (dict(new_xyz=torch.zeros(2, 0, 3)), 'M=0'),
+    (dict(xyz=torch.zeros(2, 0, 3)), 'N=0'),
+])
+def test_ball_query_wrapper_checks(bad, match):
+    """The kernel's wrapper refuses what its CUDA entry does not take
+    (checked on CPU tensors here, without the device check), and refuses a
+    CPU tensor with the device check."""
+    from jmodt_torch.ops import kernels
+    args = _bq_args()
+    assert grouping._ball_query_args(**args, check=kernels.check_layout) \
+        == grouping.ball_query_plan(2, 100, 25, (16, 32))
+    with pytest.raises(ValueError, match=match):
+        grouping._ball_query_args(**(args | bad), check=kernels.check_layout)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        grouping._ball_query_args(**args)
+
+
+@pytest.mark.parametrize('b,n,m,nsamples,want', [
+    # RPN level 0 at B = 1 and 8: 8 double-buffered tiles of 2048 points
+    (1, 16384, 4096, (16, 32), (16, 2048)),
+    (8, 16384, 4096, (16, 32), (16, 2048)),
+    # RPN level 1 (the finetune's K4 route): the whole cloud, 96 KB
+    (8, 4096, 1024, (16, 32), (16, 4096)),
+    # the RCNN's levels at S = 1: the whole RoI cloud
+    (100, 512, 128, (64,), (16, 512)),
+    (100, 128, 32, (64,), (16, 128)),
+    # few centres: fewer warps, smaller tiles, as many as the cloud needs
+    (2, 20000, 5, (16, 32), (5, 640)),
+    (1, 4097, 4096, (16,), (16, 2048)),
+])
+def test_ball_query_plan(b, n, m, nsamples, want):
+    """The launch follows the shapes it is given: up to 16 centres a
+    block, the whole cloud staged where it fits in two tiles' shared
+    memory (at most 96 KB at 24 bytes a staged point, so two blocks share
+    an SM), else tiles of 4 points a thread."""
+    plan = grouping.ball_query_plan(b, n, m, nsamples)
+    assert tuple(plan) == want
+    whole = plan.tile == n
+    assert (1 if whole else 2) * plan.tile * 24 <= 98304
+    assert whole or plan.tile == 4 * 32 * plan.warps
 
 
 def test_group_points_fl():
