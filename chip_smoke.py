@@ -1,14 +1,11 @@
 """Smoke run of the PyTorch port (jmodt_torch) on one CUDA card.
 
-    python3 chip_smoke.py
-    python3 chip_smoke.py --data-parallel    # phases 1, 15 and 17 alone
-    python3 chip_smoke.py --remainder        # phases 1 and 16 alone
-    python3 chip_smoke.py --points-parallel  # phases 1 and 17 alone
-    python3 chip_smoke.py --device-frame     # phases 1 and 18 alone
-    python3 chip_smoke.py --graphs           # phases 1 and 19 alone
-    python3 chip_smoke.py --ball-query       # phases 1 and 20 alone
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --phase 15 17    # phase 1 and these alone
 
-Phases, in order; any failure exits non-zero:
+Phases, in order; any failure exits non-zero.  A phase that feeds another
+does so when both run (2 and 5 the kernel line, 15 the one-process runs
+of 17, 2 the RCNN's ball-query calls of 20); each also runs alone.
 
 1. build    compile the hand-written kernels from jmodt_torch/csrc.
 2. kernels  one frame of the detection step records the inputs each kernel
@@ -112,9 +109,7 @@ Phases, in order; any failure exits non-zero:
             finite, the loss, grad_norm and every link / se weight's
             gradient nonzero, every frozen parameter and every RPN
             BatchNorm buffer bit-equal to its value before the step, and
-            every link / se weight moved.  Prints ms a step (CUDA events
-            and the wall clock, steps 2-3), the peak memory and the share of
-            step 3 spent in the proposal layer (synchronized around it).
+            every link / se weight moved.  Prints the peak memory.
             Then one float32 step on 1 pair on the card and on the CPU, TF32
             off, the same RoI draws, with Config() and again with
             REID.FG_THRESH 0: loss terms and grad_norm within 1e-3 of their
@@ -202,13 +197,13 @@ Phases, in order; any failure exits non-zero:
             full losses' RPN terms within 1e-5, every term within the
             control's gap and parameters within twice it (also over NCCL,
             a rank a card, when there are several cards; the whole smoke
-            needs only one, so `--data-parallel` runs phases 1 and 15
-            alone for a call on several).  Then the lockstep step (S = 4,
-            RPN.MEGA_SA) split over [cuda:0, cuda:0] (and two cards when
-            there are): float32 rows and states equal to the unsplit
-            step's (tid, emit and integers exact, floats within 1e-4), K5
-            3 launches a part a frame (the launch gates below), and ms a
-            lockstep frame split and unsplit (bfloat16).
+            needs only one, so a call on several runs `--phase 15 17`).
+            Then the lockstep step (S = 4, RPN.MEGA_SA) split over
+            [cuda:0, cuda:0] (and two cards when there are): float32 rows
+            and states equal to the unsplit step's (tid, emit and integers
+            exact, floats within 1e-4), K5 3 launches a part a frame (the
+            launch gates below), and ms a lockstep frame split and unsplit
+            (bfloat16).
 16. remainder (a) the detection step at Config() and the joint step
             with RPN.MEGA_SA, each with LI_FUSION.FUSED_PYRAMID (the image
             pyramid sampled at the points, never made whole), bfloat16:
@@ -274,11 +269,9 @@ Phases, in order; any failure exits non-zero:
             64, 16), the MIP's (1, 80, 16) and T = D, N3 with 1-6 steps
             across streams and signed zeros.  Prints the main path's first
             recorded frame's N1-N3 calls with kernel, plain and bound ms,
-            the TRAIN N1 calls likewise; the joint frame's ms (wall),
-            device ms and idle share (profiled), synchronizing calls a frame
-            by call site, the synchronized detection and tracker stages,
-            and the proposal layer's share of a synchronized finetune step.
-            The recording runs eagerly (`graphs.eager()`).
+            the TRAIN N1 calls likewise, and the replayed joint frame's
+            synchronizing calls (none) and tracker host reads (none).  The
+            recording runs eagerly (`graphs.eager()`).
 19. graphs  the eval frame's CUDA graph sections (jmodt_torch/utils/
             graphs.py) replayed against the same frames run eagerly
             (`jmodt_torch/tools/graph_parity.check`), bfloat16: 8 frames
@@ -289,18 +282,18 @@ Phases, in order; any failure exits non-zero:
             replayed from frame 2 on; wrapper launches a frame as eager's
             where the sections' Python ran and none in a replay, and the
             kernel nodes of each frame's replayed graphs equal to the
-            eager frame's launches; K5 from its FPS grid's start to its
-            consumer grid's end, replayed and eager.
+            eager frame's launches.
 20. ball    the ball-query kernel (csrc/ball_query.cu) bit-equal to the
     query   plain `ball_query_multi` on the card: RPN level 0 at B = 1, 4
             and 8, levels 1-3 at B = 8 (centres by FPS of synthetic
             frames; phase 2 holds the RCNN's calls, B = 100, nsample 64,
-            and `--ball-query` alone the joint frame's recorded calls as
-            phase 2 does); and at its edges (N not a multiple of 32 or of the tile, empty
-            balls, balls short of nsample, clouds crowded on the r^2
-            boundary, 5 warps a block, four scales, N = M = 1, balls full
-            in the first tile).  Each RPN call timed against the
-            plain version, with its bound and plan, K5 beside it.  Then 4
+            and without phase 2 this phase holds the joint frame's
+            recorded calls as phase 2 does); and at its edges (N not a
+            multiple of 32 or of the tile, empty balls, balls short of
+            nsample, clouds crowded on the r^2 boundary, 5 warps a block,
+            four scales, N = M = 1, balls full in the first tile).  Each
+            RPN call timed against the plain version, with its bound and
+            plan.  Then 4
             joint frames (Config(), RPN.MEGA_SA, bfloat16) eager and 4
             replayed with the kernel, every output bit-equal to the same
             frames with the plain route on the card; the kernel 3 times an
@@ -316,20 +309,22 @@ counted by name (`graph_parity.graph_kernels`): each kernel must match
 its per-frame count there too, and some frame of each loop must replay
 alone.  The launches printed are the graphs' where a frame replayed.
 
-Prints a {"kernels": [...]} line (launches from phase 6; per path from
-phases 3, 6, 8, 13, 16 and per training step from 11, 12, 14 and 15;
-N1-N3 from phase 18; per-call times and bounds; K1's largest placeable cluster, its cluster size at
-each N and us a step at level 0; K2's plan, us a step and warp sweep per
-call at S = 1 and 4; K3's plan and library
-time per FP level; K5's FPS floor per level; K4's and K5's
-tensor-core route, with bounds at the TF32 peak for the three products of
-each multiply-add and, for reference, as float32 FMAs), the card's name
-and power limit, and as its last line {"ok": true, "device": {...}}.  Needs
-one card; without one it exits non-zero before printing any result.
+Prints a {"kernels": [...]} line of the kernels that phases 2, 5 and 18
+held against their plain versions in the run (launches from phase 6; per
+path from phases 3, 6, 8, 13, 16 and per training step from 11, 12, 14,
+15 and 17; per-call times and bounds; K1's largest placeable cluster, its
+cluster size at each N and us a step at level 0; K2's plan, us a step and
+warp sweep per call at S = 1 and 4; K3's plan and library time per FP
+level; K5's FPS floor per level; K4's and K5's tensor-core route, with
+bounds at the TF32 peak for the three products of each multiply-add and,
+for reference, as float32 FMAs), the card's name and power limit, and as
+its last line {"ok": true, "device": {...}}.  Needs one card; without one,
+or given an unknown phase, it exits 2 before printing any result.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import dataclasses
@@ -346,6 +341,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from jmodt_torch.ops import kernels
+
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # dense TF32 on the tensor cores, HBM
 PEAK_F32_FLOPS = 67e12
@@ -360,54 +357,41 @@ K4_PASSES = 3
 SLEEP_HZ = 1.98e9
 ROTATE_BYTES = 100 << 20        # twice the H100's 50 MB L2
 
-# per-frame launches of each kernel on the detection step (phase 3) and on
-# the joint step with RPN.MEGA_SA (phase 6, the main path); the lockstep
-# step (phase 8) launches the joint step's counts per lockstep frame.  N1
+# launches of each kernel (`kernels.KERNELS`): a frame of the detection
+# step (phase 3), a frame of the joint step with RPN.MEGA_SA (6, the main
+# path; the lockstep step, 8, launches as many a lockstep frame), one
+# backbone forward under autograd (10), a finetune step (11) and a
+# full-losses step (12); None where a path is not gated on the kernel.  N1
 # (nms) runs the proposal layer's two zones and the final NMS of all the
 # frames of a batch at once; N2 (lap) and N3 (kalman_predict) the
-# tracker's assignment and predict of all its streams.
-PER_FRAME = {'fps': 4, 'fps_batched': 2, 'three_nn': 4,
-             'grouped_gather_mlp_max': 8, 'depth_to_space': 4, 'nms': 3,
-             'ball_query': 6}
-PER_FRAME_JOINT = {'fps': 1, 'fps_batched': 2, 'three_nn': 4,
-                   'grouped_gather_mlp_max': 2, 'sa_level': 3,
-                   'depth_to_space': 4, 'nms': 3, 'lap': 1,
-                   'kalman_predict': 1, 'ball_query': 3}
-KERNELS = [
-    dict(name='fps', counter='fps', source='jmodt_torch/csrc/fps.cu',
-         replaces='jmodt_tpu/ops/pallas/fps.py:63'),
-    dict(name='fps_batched', counter='fps_batched',
-         source='jmodt_torch/csrc/fps.cu',
-         replaces='jmodt_tpu/ops/pallas/fps.py:134'),
-    dict(name='three_nn', counter='three_nn',
-         source='jmodt_torch/csrc/three_nn.cu',
-         replaces='jmodt_tpu/ops/pallas/three_nn.py:52'),
-    dict(name='grouped_gather_mlp_max', counter='grouped_gather_mlp_max',
-         source='jmodt_torch/csrc/grouped_gather_mlp.cu',
-         replaces='jmodt_tpu/ops/pallas/grouped_gather_mlp.py:90'),
-    dict(name='sa_level', counter='sa_level',
-         source='jmodt_torch/csrc/sa_level.cu',
-         replaces='jmodt_tpu/ops/pallas/sa_level.py:364'),
-    dict(name='depth_to_space', counter='depth_to_space',
-         source='jmodt_torch/csrc/depth_to_space.cu',
-         replaces='jmodt_tpu/ops/pallas/depth_to_space.py:87'),
-    # no Pallas kernel: the JAX package's query is plain XLA
-    dict(name='ball_query', counter='ball_query',
-         source='jmodt_torch/csrc/ball_query.cu',
-         replaces='jmodt_tpu/ops/grouping.py:107'),
-]
-# the kernels of the JAX package's device loops (no Pallas counterpart):
-# `replaces` names the loop's function; phase 18 holds them to their plain
-# versions
-LOOP_KERNELS = [
-    dict(name='nms', counter='nms', source='jmodt_torch/csrc/nms.cu',
-         replaces='jmodt_tpu/ops/nms.py:38'),
-    dict(name='lap', counter='lap', source='jmodt_torch/csrc/tracker.cu',
-         replaces='jmodt_tpu/tracking/device_tracker.py:183'),
-    dict(name='kalman_predict', counter='kalman_predict',
-         source='jmodt_torch/csrc/tracker.cu',
-         replaces='jmodt_tpu/tracking/device_tracker.py:129'),
-]
+# tracker's assignment and predict of all its streams.  B >= 2 clouds of at
+# most 1024 points take K2, so in a training step RPN levels 2-3 run K2
+# beside RCNN sa_0-1.  'nms_iou' runs only in phase 18's IoU check.
+LAUNCHES = {                   # step  joint  grad  finetune  full
+    'fps':                     (4,    1,     4,    2,        2),
+    'fps_batched':             (2,    2,     0,    4,        4),
+    'three_nn':                (4,    4,     4,    4,        4),
+    'grouped_gather_mlp_max':  (8,    2,     0,    6,        0),
+    'sa_level':                (None, 3,     0,    0,        0),
+    'depth_to_space':          (4,    4,     4,    4,        4),
+    'ball_query':              (6,    3,     4,    6,        6),
+    'nms':                     (3,    3,     0,    2,        2),
+    'nms_iou':                 (None, None,  None, None,     None),
+    'lap':                     (None, 1,     0,    0,        0),
+    'kalman_predict':          (None, 1,     0,    0,        0),
+}
+PER_FRAME, PER_FRAME_JOINT, PER_GRAD, PER_STEP_FINETUNE, PER_STEP_FULL = (
+    {name: LAUNCHES[name][col] for name in kernels.KERNELS
+     if LAUNCHES[name][col] is not None} for col in range(5))
+# the kernels a path launches from inside its wrapper, recorded by
+# `record_loop_kernels` at the call {counter: (module, attribute)}; the
+# other kernels a frame runs are recorded at their wrapper by
+# `record_kernel_inputs`
+LOOP_SPIES = {'nms': ('jmodt_torch.ops.nms', '_nms_kernel'),
+              'lap': ('jmodt_torch.tracking.device_tracker',
+                      '_lap_assign_kernel'),
+              'kalman_predict': ('jmodt_torch.tracking.device_tracker',
+                                 '_kalman_predict_kernel')}
 NET_TOL = 1e-3
 K4_TOL = 1e-4
 K5_TOL = 1e-4
@@ -417,21 +401,7 @@ STREAMS = 4
 HOST_READS = 0          # tracker device-to-host reads a lockstep frame
 K2_WARPS = (1, 2, 4)    # K2's plans swept: warps a cloud
 GRAD_TOL = 1e-4
-# phase 10: kernel launches of one backbone forward under autograd
-PER_GRAD = {'fps': 4, 'fps_batched': 0, 'three_nn': 4,
-            'grouped_gather_mlp_max': 0, 'sa_level': 0, 'depth_to_space': 4,
-            'nms': 0, 'lap': 0, 'kalman_predict': 0, 'ball_query': 4}
 GRAD_IMG_HW = (96, 320)
-# phases 11-12: kernel launches of one training step.  B >= 2 clouds of at
-# most 1024 points take K2, so RPN levels 2-3 run K2 beside RCNN sa_0-1
-PER_STEP_FINETUNE = {'fps': 2, 'fps_batched': 4, 'three_nn': 4,
-                     'grouped_gather_mlp_max': 6, 'sa_level': 0,
-                     'depth_to_space': 4, 'nms': 2, 'lap': 0,
-                     'kalman_predict': 0, 'ball_query': 6}
-PER_STEP_FULL = {'fps': 2, 'fps_batched': 4, 'three_nn': 4,
-                 'grouped_gather_mlp_max': 0, 'sa_level': 0,
-                 'depth_to_space': 4, 'nms': 2, 'lap': 0,
-                 'kalman_predict': 0, 'ball_query': 6}
 K6_BACKWARD_FULL = 4
 TRAIN_PAIRS = 4
 TRAIN_STEPS = 3
@@ -544,9 +514,9 @@ def record_kernel_inputs(run):
     import jmodt_torch.models.image_backbone as image_backbone
     import jmodt_torch.models.pointnet2 as pointnet2
     import jmodt_torch.ops.fused_sa as fused_sa
-    from jmodt_torch.ops import kernels
     from jmodt_torch.utils import graphs
-    calls = {k['name']: [] for k in KERNELS}
+    calls = {name: [] for name, row in LAUNCHES.items()
+             if row[:2] != (None, None) and name not in LOOP_SPIES}
     deconvs = []
     deconv_cls = image_backbone.NonOverlapDeconv
     originals = (pointnet2.farthest_point_sample, pointnet2.three_nn,
@@ -606,14 +576,13 @@ def ball_query_work(radii, nsamples, xyz, new_xyz):
 
 def fps_batched_with(xyz, npoint, warps):
     """K2 with `warps` warps a cloud, whatever the wrapper's plan."""
-    from jmodt_torch.ops import kernels
     b, n, _ = xyz.shape
     ppt = 1
     while 32 * warps * ppt < n:
         ppt *= 2
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
-    kernels.launch('fps_batched', 'jmodt_fps_batched', xyz.data_ptr(), b, n,
-                   npoint, warps, ppt, out.data_ptr(), device=xyz.device)
+    kernels.launch('fps_batched', xyz.data_ptr(), b, n, npoint, warps, ppt,
+                   out.data_ptr(), device=xyz.device)
     return out
 
 
@@ -623,8 +592,7 @@ def check_kernels(recorded, per_frame, timed=True):
     (True: all), its kernel, plain and library times and its bound.
     Returns {kernel name: aggregate over the frame's calls}."""
     from jmodt_torch.ops import depth_to_space as d2s
-    from jmodt_torch.ops import (fused_sa, grouping, interpolate, kernels,
-                                 sampling)
+    from jmodt_torch.ops import fused_sa, grouping, interpolate, sampling
     calls, deconvs = recorded
     agg = {}
     timed_names = set(per_frame) if timed is True else set(timed or ())
@@ -822,7 +790,6 @@ def counted(call):
     """(call(), the frame's record: the `kernels.launches` and
     `kernels.graphs` it added, and the launches of the CUDA graphs it
     replayed, read from their kernel nodes)."""
-    from jmodt_torch.ops import kernels
     from jmodt_torch.tools.graph_parity import replayed_launches
     launches, sections = kernels.launches.copy(), kernels.graphs.copy()
     out, graphed = replayed_launches(call)
@@ -1024,7 +991,7 @@ def k5_fps_floor(xyz, npoint, nsamples, folded):
     """K1 alone on the cloud with the FPS plan K5 runs (K5's floor: its
     table, query and MLP run behind this FPS).  Launched directly, since
     the FPS wrapper gives B > 1 clouds of at most 1024 points to K2."""
-    from jmodt_torch.ops import kernels, sa_level
+    from jmodt_torch.ops import sa_level
     b, n, _ = xyz.shape
     widths = [[layers[0][0].shape[0]] + [w.shape[1] for w, _ in layers]
               for layers in folded]
@@ -1032,8 +999,8 @@ def k5_fps_floor(xyz, npoint, nsamples, folded):
         b, n, npoint, nsamples, widths, kernels.fps_max_cluster(),
         torch.cuda.get_device_properties(xyz.device).multi_processor_count)
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
-    kernels.launch('fps', 'jmodt_fps', xyz.data_ptr(), b, n, npoint,
-                   *plan.fps, out.data_ptr(), device=xyz.device)
+    kernels.launch('fps', xyz.data_ptr(), b, n, npoint, *plan.fps,
+                   out.data_ptr(), device=xyz.device)
     return out
 
 
@@ -1092,16 +1059,12 @@ def run_joint(joint, cfg, frames):
     """Phase 6: 4 frames with the launch gates of `frame_gates` a frame,
     then one frame fed three times to a new state."""
     state = new_state(cfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     packs, records = [], []
     for i, f in enumerate(frames):
         (state, packed), rec = counted(functools.partial(
             joint, state, i + 1, f['pts_input'], f['img'], f['pts_xy']))
         packs.append(packed)
         records.append(rec)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / len(frames)
     counts = frame_gates('joint', records, PER_FRAME_JOINT)
     emitted = 0
     for i, packed in enumerate(packs):
@@ -1120,7 +1083,7 @@ def run_joint(joint, cfg, frames):
     check(ids[0] <= ids[1] and ids[0] <= ids[2],
           f'joint: ids {sorted(ids[0])} of the first pass not kept: '
           f'{sorted(ids[1])}, {sorted(ids[2])}')
-    return ms, counts, emitted / len(frames), len(ids[0])
+    return counts, emitted / len(frames), len(ids[0])
 
 
 def joint_parity(frames):
@@ -1162,8 +1125,7 @@ def run_batched(bjoint, cfg, frames):
     """Phase 8: one lockstep frame records every kernel's inputs, which are
     then held against the plain versions (K2 also timed); then 3 frames
     with per-frame launch (`frame_gates`) and host-read checks.  Returns
-    (ms a lockstep frame, launches, rows emitted a lockstep frame, K2's
-    aggregate)."""
+    (launches, rows emitted a lockstep frame, K2's aggregate)."""
     from jmodt_torch.tracking import device_tracker
     states = new_state(cfg, streams=STREAMS)
     recorded, (states, _) = record_kernel_inputs(
@@ -1175,8 +1137,6 @@ def run_batched(bjoint, cfg, frames):
                        timed=('fps_batched',))['fps_batched']
     inputs = [lockstep_inputs(frames, t, STREAMS) for t in (1, 2, 3)]
     reads0 = device_tracker.host_syncs
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     packs, records, reads = [], [], []
     for args in inputs:
         (states, packed), rec = counted(functools.partial(bjoint, states,
@@ -1184,8 +1144,6 @@ def run_batched(bjoint, cfg, frames):
         packs.append(packed)
         records.append(rec)
         reads.append(device_tracker.host_syncs - reads0)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / len(inputs)
     counts = frame_gates('streams', records, PER_FRAME_JOINT)
     for i in range(len(inputs)):
         check(reads[i] == HOST_READS * (i + 1),
@@ -1199,7 +1157,7 @@ def run_batched(bjoint, cfg, frames):
               f'streams frame {i}: non-finite rows')
         emitted += int((packed[..., 9] > 0.5).sum())
     check(emitted > 0, 'streams: no row emitted in 3 lockstep frames')
-    return ms, counts, emitted / len(packs), k2
+    return counts, emitted / len(packs), k2
 
 
 def batched_parity(frames, streams=2, n_frames=2):
@@ -1278,7 +1236,6 @@ def backbone_backward(cfg32, frame, cot, dev, plain=False, img_scale=1.0):
     {parameter: gradient or None}, launches, K6 backward calls)."""
     from jmodt_torch.models.point_rcnn import build_detector
     from jmodt_torch.ops import depth_to_space as d2s
-    from jmodt_torch.ops import kernels
     backbone = build_detector(cfg32, device=dev, seed=0).rpn.backbone
     pts, img, xy = (torch.as_tensor(frame[k], device=dev)
                     for k in ('pts_input', 'img', 'pts_xy'))
@@ -1432,50 +1389,28 @@ def check_counts(counts, per_step, what):
               f'{counts.get(name, 0)} times in a step, expected {per}')
 
 
-def timed_step(step, batch, proposal_share=False):
-    """(tb, CUDA-event ms, wall ms, ms inside proposal_layer or None) of one
-    train step; with `proposal_share` the proposal layer is synchronized
-    before and after, and its time summed."""
-    import jmodt_torch.models.point_rcnn as point_rcnn
-    inside = []
-    orig = point_rcnn.proposal_layer
-
-    def timed(*args):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = orig(*args)
-        torch.cuda.synchronize()
-        inside.append(time.perf_counter() - t)
-        return out
-
-    if proposal_share:
-        point_rcnn.proposal_layer = timed
+def timed_step(step, batch):
+    """(tb, CUDA-event ms, wall ms) of one train step."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        tb = step(batch)
-        end.record()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    finally:
-        point_rcnn.proposal_layer = orig
-    return (tb, start.elapsed_time(end), wall,
-            sum(inside) * 1e3 if proposal_share else None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    tb = step(batch)
+    end.record()
+    torch.cuda.synchronize()
+    return tb, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
 
 
 def run_finetune(cfg):
     """Phase 11: TRAIN_STEPS finetune steps of TRAIN_PAIRS pairs, kernel
     inputs recorded on step 1 and held against the plain versions; the
     launch counts of the last step are returned."""
-    from jmodt_torch.ops import kernels
     from jmodt_torch.train.train_step import scalars
     model, _, step = train_parts(cfg)
     batches = pair_batches(cfg, TRAIN_PAIRS, range(TRAIN_STEPS), 'cuda')
-    ms, wall, losses = [], [], []
-    agg = share = peak = counts = None
+    losses = []
+    agg = peak = counts = None
     for i, batch in enumerate(batches):
         before = {k: v.clone() for k, v in model.state_dict().items()}
         kernels.launches.clear()
@@ -1484,11 +1419,7 @@ def run_finetune(cfg):
         else:
             if i == 1:
                 torch.cuda.reset_peak_memory_stats()
-            tb, ev_ms, wall_ms, prop_ms = timed_step(step, batch, i == 2)
-            ms.append(ev_ms)
-            wall.append(wall_ms)
-            if prop_ms is not None:
-                share = prop_ms / wall_ms
+            tb = step(batch)
         counts = dict(kernels.launches)
         check_counts(counts, PER_STEP_FINETUNE, f'finetune step {i + 1}')
         vals = scalars(tb)
@@ -1515,8 +1446,7 @@ def run_finetune(cfg):
                                            PER_STEP_FINETUNE.items() if v})
         if i == 1:
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    return dict(ms=ms, wall=wall, share=share, peak_gib=peak,
-                losses=losses, agg=agg, counts=counts)
+    return dict(peak_gib=peak, losses=losses, agg=agg, counts=counts)
 
 
 def train_parity(cfg32):
@@ -1583,7 +1513,6 @@ def run_full(cfg):
     """Phase 12: full-losses steps on 1 pair; launches, gradients, one
     BatchNorm layer's statistics, ms a step."""
     from jmodt_torch.ops import depth_to_space as d2s
-    from jmodt_torch.ops import kernels
     from jmodt_torch.train.train_step import scalars
     model, _, step = train_parts(cfg)
     batches = pair_batches(cfg, 1, (200, 201), 'cuda')
@@ -1631,7 +1560,7 @@ def run_full(cfg):
     check(max(bn_err) <= 1e-5, f'full-losses step: BatchNorm statistics err '
           f'{bn_err}')
     kernels.launches.clear()
-    tb2, ev_ms, wall_ms, _ = timed_step(step, batches[1])
+    tb2, ev_ms, wall_ms = timed_step(step, batches[1])
     check_counts(dict(kernels.launches), PER_STEP_FULL, 'full-losses step 2')
     return dict(counts=counts, k6_backward=len(k6_back), params=n_params,
                 bn_err=bn_err, ms=ev_ms, wall=wall_ms,
@@ -1899,7 +1828,6 @@ def recording_train_steps(rec, kernel_inputs=False):
     before step 1, a copy of the parameters step 1 must not move and step
     1's batch; with `kernel_inputs` step 1 also records every kernel
     wrapper's inputs."""
-    from jmodt_torch.ops import kernels
     from jmodt_torch.train import trainer
     from jmodt_torch.train.train_step import scalars
     make = trainer.make_train_step
@@ -2533,7 +2461,7 @@ def split_lockstep(frames):
 
 
 
-def data_parallel_phase(frames) -> dict:
+def data_parallel_phase(frames, done) -> dict:
     """Phase 15, printed; returns its data-parallel results."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2624,7 +2552,7 @@ def fused_paths(frames):
         lambda: run_step(step, frames[:n]))
     mcfg = pyramid_cfg(mega_cfg('bfloat16'), True)
     joint = build_joint(mcfg)
-    _, joint_counts, _, _ = routed(
+    joint_counts, _, _ = routed(
         'joint step',
         lambda: joint(new_state(mcfg), 1, f['pts_input'], f['img'],
                       f['pts_xy']),
@@ -2951,7 +2879,7 @@ def ladder_run(tmp):
     return res, secs
 
 
-def remainder_phase(frames) -> dict:
+def remainder_phase(frames, done) -> dict:
     """Phase 16, printed; returns the fused paths' launches a frame."""
     t0 = time.perf_counter()
     det_counts, joint_counts = fused_paths(frames)
@@ -3238,10 +3166,10 @@ def points_parallel_steps(tmp, refs=None, data_peak=None):
     return res
 
 
-def points_parallel_phase(data=None) -> dict:
-    """Phase 17, printed; returns its results.  `data`: phase 15's results
-    (its one-process runs and its data-only ranks' peak memory), or None
-    when it did not run."""
+def points_parallel_phase(frames, done) -> dict:
+    """Phase 17, printed; returns its results.  It takes phase 15's one-
+    process runs and its data-only ranks' peak memory when phase 15 ran."""
+    data = done.get(15)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         pp = points_parallel_steps(
@@ -3296,12 +3224,13 @@ def record_loop_kernels(run):
     `utils/graphs.py`), recording the arguments of every N1, N2 and N3 launch
     in path order, {name: [args, ...]}; returns (calls, what `run`
     returned)."""
-    from jmodt_torch.ops import nms
-    from jmodt_torch.tracking import device_tracker as dt
+    import importlib
     from jmodt_torch.utils import graphs
-    calls = {k['name']: [] for k in LOOP_KERNELS}
-    originals = (nms._nms_kernel, dt._lap_assign_kernel,
-                 dt._kalman_predict_kernel)
+    spied = {name: (importlib.import_module(mod), attr)
+             for name, (mod, attr) in LOOP_SPIES.items()}
+    calls = {name: [] for name in spied}
+    originals = {name: getattr(mod, attr)
+                 for name, (mod, attr) in spied.items()}
 
     def spy(name, fn):
         def recorded(*args):
@@ -3309,16 +3238,15 @@ def record_loop_kernels(run):
             return fn(*args)
         return recorded
 
-    nms._nms_kernel = spy('nms', originals[0])
-    dt._lap_assign_kernel = spy('lap', originals[1])
-    dt._kalman_predict_kernel = spy('kalman_predict', originals[2])
+    for name, (mod, attr) in spied.items():
+        setattr(mod, attr, spy(name, originals[name]))
     try:
         with graphs.eager():
             out = run()
         torch.cuda.synchronize()
     finally:
-        (nms._nms_kernel, dt._lap_assign_kernel,
-         dt._kalman_predict_kernel) = originals
+        for name, (mod, attr) in spied.items():
+            setattr(mod, attr, originals[name])
     return calls, out
 
 
@@ -3537,7 +3465,6 @@ def sync_free(what, fn):
 
 
 def check_path_launches(what, before, n_frames, per_frame):
-    from jmodt_torch.ops import kernels
     for name, per in per_frame.items():
         got = kernels.launches[name] - before.get(name, 0)
         check(got == per * n_frames, f'{what}: {name} launched {got} times '
@@ -3548,12 +3475,10 @@ def sync_free_paths(cfg, frames):
     """The joint step (S = 1) in each assignment mode, the S = 4 lockstep
     step, a scan chunk and a finetune step's proposal layer under sync
     debug mode 'error', each after a warm-up outside it; N1-N3's launches
-    counted and their calls recorded.  Returns ({path: recorded calls},
-    the proposal layer's share of a timed finetune step)."""
+    counted and their calls recorded.  Returns {path: recorded calls}."""
     import jmodt_torch.models.point_rcnn as point_rcnn
     from jmodt_torch.models.point_rcnn import init_weights
     from jmodt_torch.models.rcnn import CorrelationHead
-    from jmodt_torch.ops import kernels
     from jmodt_torch.pipeline import (make_batched_joint_step,
                                       make_joint_step, make_scan_step)
     model, head, kw = joint_parts(cfg)
@@ -3632,7 +3557,7 @@ def sync_free_paths(cfg, frames):
 
     cfg_ft = train_cfg(True, 'bfloat16', reid_fg_thresh=0.0)
     tmodel, _, step = train_parts(cfg_ft)
-    batches = pair_batches(cfg_ft, TRAIN_PAIRS, range(3), 'cuda')
+    batches = pair_batches(cfg_ft, TRAIN_PAIRS, range(2), 'cuda')
     step(batches[0])                                     # warm-up
     orig = point_rcnn.proposal_layer
     inside = []
@@ -3651,24 +3576,21 @@ def sync_free_paths(cfg, frames):
         point_rcnn.proposal_layer = orig
     check(inside == [PER_STEP_FINETUNE['nms']],
           f'finetune proposal layer: N1 launches {inside}')
-    _, _, wall, prop = timed_step(step, batches[2], proposal_share=True)
     print(f'[18 device frame] finetune step ({TRAIN_PAIRS} pairs): the '
           'proposal layer with no synchronizing call, N1 '
-          f'{inside[0]} launches; proposal layer {prop:.2f} of {wall:.2f} '
-          f'ms ({100 * prop / wall:.1f}%) of a synchronized step',
-          flush=True)
+          f'{inside[0]} launches', flush=True)
     del tmodel, step
-    return recorded, prop / wall
+    return recorded
 
 
-def device_frame_phase(frames) -> dict:
+def device_frame_phase(frames, done) -> dict:
     """Phase 18: the frame without host reads (N1 NMS, N2
     Jonker-Volgenant, N3 Kalman predict)."""
     from jmodt_torch import profile_step as ps
     t0 = time.perf_counter()
     dev = torch.device('cuda')
     mcfg = mega_cfg('bfloat16')
-    recorded, share = sync_free_paths(mcfg, frames)
+    recorded = sync_free_paths(mcfg, frames)
 
     # N1's IoU bit for bit
     bad = pairs = 0
@@ -3723,35 +3645,18 @@ def device_frame_phase(frames) -> dict:
           f'{list(LAP_SHAPES)} and T = D, N3 with steps 1-6 and signed '
           'zeros: all equal to their plain versions', flush=True)
 
-    # where a frame's time goes, as profile_step reads it
+    # profile_step's count of a frame's host reads, the sections replayed
     run = ps._joint(mcfg)
-    run(frames[0])
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for f in frames:
+    for f in [frames[0], *frames]:
         run(f)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t1) * 1e3 / len(frames)
     reads, syncs, sites = ps._host_syncs(run, frames)
     check(reads == 0 and syncs == 0, f'joint frame: {reads} tracker reads, '
           f'{syncs} synchronizing calls a frame at {sites}')
-    prof = ps.device_time(run, frames)
-    spans = ps.span_table(prof['profile'], len(frames))
-    print(f'[18 device frame] joint frame (Config(), MEGA_SA, bfloat16): '
-          f'{wall:.3f} ms a frame (wall, {len(frames)} frames, '
-          f'unsynchronized); profiled {prof["wall_ms"]:.3f} ms wall, '
-          f'{prof["device_ms"]:.3f} ms device (union; sum '
-          f'{prof["summed_ms"]:.3f}), idle share {prof["idle"]:.3f}; '
-          f'synchronizing calls a frame {syncs:g} (by site: '
-          f'{sites or "none"}), tracker host reads {reads:g}; device ms '
-          f'launched in jmodt.detection {spans["jmodt.detection"][1]:.3f}, '
-          f'in jmodt.tracker {spans["jmodt.tracker"][1]:.3f}; proposal layer '
-          f'{100 * share:.1f}% of a finetune step '
+    print(f'[18 device frame] joint frame (Config(), MEGA_SA, bfloat16), '
+          f'{len(frames)} frames: synchronizing calls a frame {syncs:g} (by '
+          f'site: {sites or "none"}), tracker host reads {reads:g} '
           f'({time.perf_counter() - t0:.1f} s)', flush=True)
-    return dict(agg=agg, train_nms=train_agg, frame_ms=wall,
-                idle=prof['idle'], device_ms=prof['device_ms'],
-                syncs=syncs, share=share,
-                tracker_ms=spans['jmodt.tracker'][1])
+    return dict(agg=agg, train_nms=train_agg, syncs=syncs)
 
 
 # ----------------------------------------------------------------- phase 19
@@ -3759,20 +3664,18 @@ def device_frame_phase(frames) -> dict:
 GRAPH_TOL = 1e-4        # replayed against eager, of each float's scale
 
 
-def graphs_phase() -> dict:
+def graphs_phase(frames, done) -> None:
     """Phase 19: the eval frame's sections (`utils/graphs.py`) replayed as
     CUDA graphs against the same frames run eagerly
     (`jmodt_torch/tools/graph_parity.check`), bfloat16: 8 frames of the
     joint step with RPN.MEGA_SA, fusion and LiDAR-only, the tracker state
-    reset after 4, and 4 lockstep frames at S = STREAMS; K5 timed both
-    ways."""
+    reset after 4, and 4 lockstep frames at S = STREAMS."""
     from jmodt_torch.tools import graph_parity
     t0 = time.perf_counter()
     cfg = mega_cfg('bfloat16')
     lidar = dataclasses.replace(cfg, LI_FUSION=dataclasses.replace(
         cfg.LI_FUSION, ENABLED=False))
-    res = {'fusion': graph_parity.check(cfg, 8, None, 'cuda', GRAPH_TOL,
-                                        time_k5=True),
+    res = {'fusion': graph_parity.check(cfg, 8, None, 'cuda', GRAPH_TOL),
            'LiDAR-only': graph_parity.check(lidar, 8, None, 'cuda',
                                             GRAPH_TOL),
            f'lockstep S={STREAMS}': graph_parity.check(
@@ -3788,15 +3691,7 @@ def graphs_phase() -> dict:
               'a replay; the last frame\'s graphs launch '
               f'{r["replayed_launches"][-1]}, the eager frame\'s launches',
               flush=True)
-    k5e, k5r = res['fusion']['k5_eager'], res['fusion']['k5_replayed']
-    print(f'[19 graphs] K5 (FPS grid start to consumer grid end, 3 levels '
-          f'a frame, profiled): eager {k5e["ms_per_frame"]:.4f} ms a frame '
-          f'({k5e["overlapped"]} of {k5e["levels"]} consumer grids started '
-          f'before their FPS grid ended), replayed '
-          f'{k5r["ms_per_frame"]:.4f} ms ({k5r["overlapped"]} of '
-          f'{k5r["levels"]}) ({time.perf_counter() - t0:.1f} s)',
-          flush=True)
-    return {'k5_eager': k5e, 'k5_replayed': k5r}
+    print(f'[19 graphs] {time.perf_counter() - t0:.1f} s', flush=True)
 
 
 # ----------------------------------------------------------------- phase 20
@@ -3925,15 +3820,15 @@ def bq_frames_equal(what, got, want):
     return n
 
 
-def ball_query_phase(frames, alone=False) -> dict:
+def ball_query_phase(frames, done) -> dict:
     """Phase 20: the ball-query kernel bit-equal to the plain version on
-    the RPN's calls and at its edges, timed beside the plain version and
-    K5; then the joint frame (Config(), RPN.MEGA_SA, bfloat16) eager and
-    replayed with the kernel route, bit-equal to the same frames with the
-    plain route.  Phase 2 holds and times the RCNN's calls; `alone` (no
-    phase 2 in the run) holds and times the joint frame's recorded calls
-    as phase 2 does."""
-    from jmodt_torch.ops import grouping, sa_level
+    the RPN's calls and at its edges, timed beside the plain version; then
+    the joint frame (Config(), RPN.MEGA_SA, bfloat16) eager and replayed
+    with the kernel route, bit-equal to the same frames with the plain
+    route.  Phase 2 holds and times the RCNN's calls; without phase 2 in
+    the run this phase holds and times the joint frame's recorded calls as
+    phase 2 does."""
+    from jmodt_torch.ops import grouping
     from jmodt_torch.tools.graph_parity import replay_only
     t0 = time.perf_counter()
     cfg = mega_cfg('bfloat16')
@@ -3946,7 +3841,7 @@ def ball_query_phase(frames, alone=False) -> dict:
     calls = recorded[0]['ball_query']
     check(len(calls) == PER_FRAME_JOINT['ball_query'],
           f'ball_query: {len(calls)} calls a joint frame')
-    if alone:
+    if 2 not in done:
         check_kernels(recorded, {'ball_query': PER_FRAME_JOINT['ball_query']})
     rows = []
     for what, args in bq_shapes(cfg):
@@ -3974,10 +3869,6 @@ def ball_query_phase(frames, alone=False) -> dict:
         check(bq_same(args), f'ball_query {what}: indices differ')
     print(f'[20 ball query] {len(edges)} edge cases equal to plain: '
           + '; '.join(w for w, _ in edges), flush=True)
-    k5 = [cuda_ms(sa_level.sa_level_fused, args, 10)
-          for args in recorded[0]['sa_level']]
-    print('[20 ball query] K5 beside it, L1 / L2 / L3: '
-          + ' / '.join(show(t) for t in k5), flush=True)
 
     runs = {route: bq_joint_runs(cfg, route) for route in ('kernel', 'plain')}
     (ke, kr), (pe, pr) = runs['kernel'], runs['plain']
@@ -4004,120 +3895,123 @@ def ball_query_phase(frames, alone=False) -> dict:
           f'{PER_FRAME_JOINT["ball_query"]} kernel launches an eager frame '
           'and in each replayed frame\'s graphs '
           f'({time.perf_counter() - t0:.1f} s)', flush=True)
-    return {'per_call': rows, 'k5_ms': [t[0] for t in k5]}
+    return {'per_call': rows}
 
 
-def main(argv) -> int:
-    if not torch.cuda.is_available():
-        print('chip_smoke: no CUDA device', file=sys.stderr)
-        return 2
-    from jmodt_torch.config import Config
-    from jmodt_torch.data.synthetic import make_eval_frame
-    from jmodt_torch.models.inference import make_detection_step
-    from jmodt_torch.models.point_rcnn import build_detector
-    from jmodt_torch.ops import kernels
+# ------------------------------------------------------------- phases 1-14
 
-    print(f'torch {torch.__version__} cuda {torch.version.cuda} '
-          f'device {torch.cuda.get_device_name(0)}', flush=True)
+def build_phase(frames, done):
+    """Phase 1."""
     t0 = time.perf_counter()
     kernels.build()
     print(f'[1 build] kernels built in {time.perf_counter() - t0:.1f} s '
           f'-> {kernels.library_path().name}', flush=True)
 
-    cfg = dataclasses.replace(Config(), DTYPE='bfloat16')
-    frames = [make_eval_frame(seed, cfg, raw_u8=True) for seed in range(4)]
-    if argv == ['--data-parallel']:     # phases 15, 17: a multi-card call
-        points_parallel_phase(data_parallel_phase(frames))
-        print_device()
-        return 0
-    if argv == ['--points-parallel']:   # phase 17 alone
-        points_parallel_phase()
-        print_device()
-        return 0
-    if argv == ['--remainder']:         # phase 16 alone
-        remainder_phase(frames)
-        print_device()
-        return 0
-    if argv == ['--device-frame']:      # phase 18 alone
-        device_frame_phase(frames)
-        print_device()
-        return 0
-    if argv == ['--graphs']:            # phase 19 alone
-        graphs_phase()
-        print_device()
-        return 0
-    if argv == ['--ball-query']:        # phase 20 alone
-        ball_query_phase(frames, alone=True)
-        print_device()
-        return 0
-    if argv:
-        print(f'chip_smoke: unknown arguments {argv}', file=sys.stderr)
-        return 2
-    model = build_detector(cfg, seed=0)
-    step = make_detection_step(cfg, model)
+
+def default_cfg(dtype: str):
+    from jmodt_torch.config import Config
+    return dataclasses.replace(Config(), DTYPE=dtype)
+
+
+def detection_step(cfg):
+    """The detection step at `cfg` with detector weights from seed 0."""
+    from jmodt_torch.models.inference import make_detection_step
+    from jmodt_torch.models.point_rcnn import build_detector
+    return make_detection_step(cfg, build_detector(cfg, seed=0))
+
+
+def kernels_phase(frames, done):
+    """Phase 2; returns {kernel name: aggregate}."""
+    step = detection_step(default_cfg('bfloat16'))
     print('[2 kernels] inputs recorded from one detection step; kernel vs '
           'plain version:', flush=True)
     f = frames[3]
     recorded, _ = record_kernel_inputs(
         lambda: step(f['pts_input'], f['img'], f['pts_xy']))
-    agg = check_kernels(recorded, PER_FRAME)
+    return check_kernels(recorded, PER_FRAME)
 
+
+def step_phase(frames, done):
+    """Phase 3; returns the launches of its frames."""
+    step = detection_step(default_cfg('bfloat16'))
     ms, counts, _ = run_step(step, frames[:3])
     print(f'[3 step] default Config (bfloat16), 3 frames: {ms:.2f} ms/frame'
           f'; launches {counts}', flush=True)
+    return counts
 
-    cfg32 = dataclasses.replace(cfg, DTYPE='float32')
-    errs = parity(cfg32, frames[0])
+
+def parity_phase(frames, done):
+    """Phase 4."""
+    errs = parity(default_cfg('float32'), frames[0])
     print('[4 parity] float32 card vs CPU: roi_mask, keep equal; errors '
           + ', '.join(f'{k} {v:.3g}' for k, v in errs.items()), flush=True)
-    del model, step
 
+
+def k5_phase(frames, done):
+    """Phase 5; returns {'sa_level': aggregate}."""
     mcfg = mega_cfg('bfloat16')
     joint = build_joint(mcfg)
     print('[5 K5] inputs recorded from one joint step (RPN.MEGA_SA); kernel '
           'vs plain version:', flush=True)
+    f = frames[3]
     recorded, _ = record_kernel_inputs(
         lambda: joint(new_state(mcfg), 1, f['pts_input'], f['img'],
                       f['pts_xy']))
-    agg.update(check_kernels(
-        recorded, {'sa_level': PER_FRAME_JOINT['sa_level']}))
+    return check_kernels(recorded, {'sa_level': PER_FRAME_JOINT['sa_level']})
 
-    jms, jcounts, rows_per_frame, kept = run_joint(joint, mcfg, frames)
+
+def joint_phase(frames, done):
+    """Phase 6; returns the launches of its frames."""
+    mcfg = mega_cfg('bfloat16')
+    counts, rows_per_frame, kept = run_joint(build_joint(mcfg), mcfg, frames)
     print(f'[6 joint] Config() with RPN.MEGA_SA (bfloat16), 4 frames: '
-          f'{jms:.2f} ms/frame, {rows_per_frame:.2f} rows emitted a frame; '
-          f'launches {jcounts}; a frame fed 3 times kept its {kept} ids',
-          flush=True)
-    del joint
+          f'{rows_per_frame:.2f} rows emitted a frame; launches {counts}; a '
+          f'frame fed 3 times kept its {kept} ids', flush=True)
+    return counts
 
+
+def joint_parity_phase(frames, done):
+    """Phase 7."""
     jerrs, jemit = joint_parity(frames[:3])
     print('[7 parity] joint step float32 card vs CPU, 3 frames: tid, emit '
           f'equal ({jemit} rows emitted); boxes / scores errors '
           + ', '.join(f'{e:.3g}' for e in jerrs), flush=True)
 
-    bjoint = build_joint(mcfg, batched=True)
+
+def streams_phase(frames, done):
+    """Phase 8; returns the launches of its lockstep frames and K2's
+    aggregate."""
+    mcfg = mega_cfg('bfloat16')
     print(f'[8 streams] inputs recorded from one lockstep frame (S={STREAMS}'
           '); kernel vs plain version:', flush=True)
-    bms, bcounts, brows, k2_streams = run_batched(bjoint, mcfg, frames)
-    del bjoint
+    counts, rows, k2 = run_batched(build_joint(mcfg, batched=True), mcfg,
+                                   frames)
     print(f'[8 streams] make_batched_joint_step, S={STREAMS} (bfloat16), 3 '
-          f'lockstep frames: {bms:.2f} ms a lockstep frame, '
-          f'{bms / STREAMS:.2f} ms a stream-frame, {brows:.2f} rows emitted '
-          f'a lockstep frame, {HOST_READS} tracker host reads a frame; '
-          f'launches {bcounts}', flush=True)
+          f'lockstep frames: {rows:.2f} rows emitted a lockstep frame, '
+          f'{HOST_READS} tracker host reads a frame; launches {counts}',
+          flush=True)
     berrs, bemit = batched_parity(frames)
     print('[8 streams] float32 S=2 lockstep vs independent joint steps, 2 '
           f'frames: tid, emit equal ({bemit} rows emitted); boxes / scores '
           'errors ' + ', '.join(f'{e:.3g}' for e in berrs), flush=True)
+    return dict(counts=counts, k2=k2)
 
-    serr, srows = scan_vs_joint(mcfg, frames)
+
+def scan_phase(frames, done):
+    """Phase 9."""
+    serr, srows = scan_vs_joint(mega_cfg('bfloat16'), frames)
     print(f'[9 scan] ScanPipeline (chunk 3, 4 frames, ragged tail) vs '
           f'JointPipeline: frame ids and tids equal ({srows} rows), boxes '
           f'err {serr:.3g}', flush=True)
 
+
+def backward_phase(frames, done):
+    """Phase 10."""
     t0 = time.perf_counter()
-    back = backward_parity(mega_cfg('float32'))
+    cfg32 = mega_cfg('float32')
+    back = backward_parity(cfg32)
     cpu, ulp = over(back['vs_cpu']), over(back['cpu_vs_ulp'])
-    print(f'[10 backward] RPN backbone, float32, {mcfg.RPN.NUM_POINTS} '
+    print(f'[10 backward] RPN backbone, float32, {cfg32.RPN.NUM_POINTS} '
           f'points, {GRAD_IMG_HW[0]}x{GRAD_IMG_HW[1]} image: launches under '
           f'autograd {back["launches"]}, K6 backward {back["k6_backward"]} '
           f'times; {back["params"]} parameter gradients present and finite; '
@@ -4130,6 +4024,9 @@ def main(argv) -> int:
           f'largest {ulp[0]:.3g} ({ulp[1]}), {ulp[2]} over {GRAD_TOL:g} '
           f'({time.perf_counter() - t0:.1f} s)', flush=True)
 
+
+def finetune_phase(frames, done):
+    """Phase 11; returns `run_finetune`'s results."""
     cfg_ft = train_cfg(True, 'bfloat16', reid_fg_thresh=0.0)
     print(f'[11 finetune] inputs recorded from training step 1 ('
           f'{TRAIN_PAIRS} pairs); kernel vs plain version:', flush=True)
@@ -4139,11 +4036,8 @@ def main(argv) -> int:
           f' (bfloat16), {TRAIN_PAIRS} pairs a step, {TRAIN_STEPS} steps: '
           f'launches step {TRAIN_STEPS} {ft["counts"]}; loss and every link / '
           'se weight gradient nonzero; frozen parameters and RPN buffers '
-          'bit-equal, link / se weights moved; steps 2-3 '
-          + ', '.join(f'{m:.2f}' for m in ft['ms']) + ' ms (CUDA events), '
-          + ', '.join(f'{m:.2f}' for m in ft['wall']) + ' ms (wall); peak '
-          f'memory {ft["peak_gib"]:.2f} GiB; proposal layer '
-          f'{100 * ft["share"]:.1f}% of step 3; losses step 1 '
+          'bit-equal, link / se weights moved; peak memory '
+          f'{ft["peak_gib"]:.2f} GiB; losses step 1 '
           + json.dumps({k: round(v, 5) for k, v in ft['losses'][0].items()})
           + f' ({time.perf_counter() - t0:.1f} s)', flush=True)
     # Config()'s finetune loss is 0 with random weights (train_cfg); the
@@ -4160,6 +4054,11 @@ def main(argv) -> int:
               f'{ndiff} RoI labels differ, all within {IOU_EDGE:g} of a '
               f'threshold; RoIs near a threshold (index, CPU IoU, card '
               f'IoU): {near} ({time.perf_counter() - t0:.1f} s)', flush=True)
+    return ft
+
+
+def full_phase(frames, done):
+    """Phase 12; returns `run_full`'s results."""
     t0 = time.perf_counter()
     full = run_full(train_cfg(False, 'bfloat16'))
     print(f'[12 full] full losses (bfloat16), 1 pair: launches a step '
@@ -4170,7 +4069,12 @@ def main(argv) -> int:
           f'events), {full["wall"]:.2f} ms (wall); losses '
           + json.dumps({k: round(v, 5) for k, v in full['losses'][0].items()})
           + f' ({time.perf_counter() - t0:.1f} s)', flush=True)
+    return full
 
+
+def eval_phase(frames, done):
+    """Phase 13; returns `eval_entry`'s results."""
+    from jmodt_torch.config import Config
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         ev = eval_entry(tmp)
@@ -4193,7 +4097,12 @@ def main(argv) -> int:
           + ', '.join(f'{m} {f[0]:.1f}, {f[1]:.1f}'
                       for m, f in ev['fps'].items())
           + f' ({time.perf_counter() - t0:.1f} s)', flush=True)
+    return ev
 
+
+def kitti_phase(frames, done):
+    """Phase 14; returns `kitti_train`'s results."""
+    from jmodt_torch.config import Config
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         kt = kitti_train(tmp)
@@ -4233,38 +4142,55 @@ def main(argv) -> int:
           f'python -m jmodt_torch.eval --only_tracking with its flags '
           f'({kt["sweep_s"]:.2f} s; phase {time.perf_counter() - t0:.1f} s)',
           flush=True)
+    return kt
 
-    dp = data_parallel_phase(frames)
-    rem = remainder_phase(frames)
-    pp = points_parallel_phase(dp)
-    df = device_frame_phase(frames)
-    graphs_phase()
-    bq = ball_query_phase(frames)
-    agg.update(df['agg'])
 
+# ------------------------------------------------------------------ the gate
+
+# phase number: function(frames, {earlier phase: its result}) -> its result
+PHASES = {1: build_phase, 2: kernels_phase, 3: step_phase, 4: parity_phase, 5: k5_phase,
+          6: joint_phase, 7: joint_parity_phase, 8: streams_phase,
+          9: scan_phase, 10: backward_phase, 11: finetune_phase,
+          12: full_phase, 13: eval_phase, 14: kitti_phase,
+          15: data_parallel_phase, 16: remainder_phase,
+          17: points_parallel_phase, 18: device_frame_phase,
+          19: graphs_phase, 20: ball_query_phase}
+# the kernel line's launches_by_path: (path, phase, its launches)
+LAUNCH_PATHS = (
+    ('detection', 3, lambda r: r),
+    ('joint', 6, lambda r: r),
+    ('batched', 8, lambda r: r['counts']),
+    ('train_finetune_step', 11, lambda r: r['counts']),
+    ('train_full_step', 12, lambda r: r['counts']),
+    ('eval_frame', 13, lambda r: r['eval_frame']),
+    ('train_kitti_step', 14, lambda r: r['steps'][-1]['counts']),
+    ('train_kitti_full_step', 14, lambda r: r['full']['counts']),
+    ('train_finetune_rank_step', 15, lambda r: r['launches']),
+    ('train_finetune_points_rank_step', 17,
+     lambda r: r['launches']['1x2 gloo']),
+    ('detection_fused_pyramid', 16, lambda r: r['detection']),
+    ('joint_fused_pyramid', 16, lambda r: r['joint']))
+
+
+def kernel_rows(done) -> list:
+    """The kernel line: a row for each kernel that phase 2, 5 or 18 held
+    against its plain version, from the results of the phases that ran."""
+    agg = {**done.get(2, {}), **done.get(5, {}),
+           **done.get(18, {}).get('agg', {})}
+    paths = {path: read(done[n]) for path, n, read in LAUNCH_PATHS
+             if n in done}
     rows = []
-    for k in KERNELS + LOOP_KERNELS:
-        a = agg[k['name']]
-        rows.append({
-            'name': k['name'], 'route': 'cuda', 'source': k['source'],
-            'replaces': k['replaces'], 'launches': jcounts[k['counter']],
-            'launches_by_path': {
-                'detection': counts.get(k['counter'], 0),
-                'joint': jcounts[k['counter']],
-                'batched': bcounts[k['counter']],
-                'train_finetune_step': ft['counts'].get(k['counter'], 0),
-                'train_full_step': full['counts'].get(k['counter'], 0),
-                'eval_frame': ev['eval_frame'].get(k['counter'], 0),
-                'train_kitti_step': st[-1]['counts'].get(k['counter'], 0),
-                'train_kitti_full_step': fl['counts'].get(k['counter'],
-                                                          0),
-                'train_finetune_rank_step': dp['launches'].get(
-                    k['counter'], 0),
-                'train_finetune_points_rank_step': pp['launches'][
-                    '1x2 gloo'].get(k['counter'], 0),
-                'detection_fused_pyramid': rem['detection'].get(
-                    k['counter'], 0),
-                'joint_fused_pyramid': rem['joint'].get(k['counter'], 0)},
+    for name, k in kernels.KERNELS.items():
+        if name not in agg:
+            continue
+        a = agg[name]
+        row = {'name': name, 'route': 'cuda',
+               'source': f'jmodt_torch/csrc/{k.source}',
+               'replaces': k.replaces}
+        if 'joint' in paths:
+            row['launches'] = paths['joint'].get(name, 0)
+        row.update({
+            'launches_by_path': {p: c.get(name, 0) for p, c in paths.items()},
             'max_abs_err': a['max_abs_err'], 'ms': a['ms'],
             'plain_ms': a['plain_ms'],
             'bound_ms': max(a['t_ops'], a['t_bytes']) * 1e3,
@@ -4272,39 +4198,61 @@ def main(argv) -> int:
                          else 'bytes'),
             'library_ms': a['library_ms'],
             'host_clocked': sorted(a['host_clocked'])})
-        row = rows[-1]
-        if k['name'] in ('grouped_gather_mlp_max', 'sa_level'):
+        if name in ('grouped_gather_mlp_max', 'sa_level'):
             row['tensor_cores'] = K4_ROUTE
             row['bound_f32_fma_ms'] = max(a['t_f32'], a['t_bytes']) * 1e3
-        if k['name'] == 'fps_batched':
-            row['per_call_streams'] = k2_streams['per_call']
-            row['ms_streams'] = k2_streams['ms']
-        if k['name'] == 'fps':
+        if name == 'fps_batched' and 8 in done:
+            row['per_call_streams'] = done[8]['k2']['per_call']
+            row['ms_streams'] = done[8]['k2']['ms']
+        if name == 'fps':
             row['max_cluster'] = kernels.fps_max_cluster()
             row['cluster_by_n'] = {str(c['n']): c['cluster']
                                    for c in a['per_call']}
             row['us_per_step_level0'] = a['per_call'][0]['us_per_step']
         if a['per_call']:
             row['per_call'] = a['per_call']
-        tr = ft['agg'].get(k['name'])
+        tr = done.get(11, {}).get('agg', {}).get(name)
         if tr is not None and tr['per_call']:
             row['per_call_train'] = tr['per_call']
             row['ms_train_step'] = tr['ms']
-        if k['name'] == 'depth_to_space':
-            row['backward_launches_train_full_step'] = full['k6_backward']
-        if k['name'] == 'ball_query':
-            row['per_call_phase20'] = bq['per_call']
-            row['k5_ms_beside'] = bq['k5_ms']
-        if k['name'] == 'nms':
-            row['per_call_train'] = df['train_nms']['per_call']
-            row['ms_train_step'] = df['train_nms']['ms']
+        if name == 'depth_to_space' and 12 in done:
+            row['backward_launches_train_full_step'] = done[12]['k6_backward']
+        if name == 'ball_query' and 20 in done:
+            row['per_call_phase20'] = done[20]['per_call']
+        if name == 'nms':
+            row['per_call_train'] = done[18]['train_nms']['per_call']
+            row['ms_train_step'] = done[18]['train_nms']['ms']
         if 'default_ms' in a:
             row['default_path_ms'] = a['default_ms']
             row['fps_floor_ms'] = a['fps_floor_ms']
         if 'deconv_ms' in a:
             row['deconv_ms'] = a['deconv_ms']
             row['deconv_library_ms'] = a['deconv_library_ms']
-    print(json.dumps({'kernels': rows}))
+        rows.append(row)
+    return rows
+
+
+def main(argv) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--phase', type=int, nargs='+', metavar='N',
+                        choices=sorted(PHASES),
+                        help='run phase 1 (the build) and these alone '
+                             '(default: every phase)')
+    selected = sorted({1, *(parser.parse_args(argv).phase or PHASES)})
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 2
+    from jmodt_torch.data.synthetic import make_eval_frame
+    print(f'torch {torch.__version__} cuda {torch.version.cuda} '
+          f'device {torch.cuda.get_device_name(0)}', flush=True)
+    frames = [make_eval_frame(seed, default_cfg('bfloat16'), raw_u8=True)
+              for seed in range(4)]
+    done = {}
+    for n in selected:
+        done[n] = PHASES[n](frames, done)
+    rows = kernel_rows(done)
+    if rows:
+        print(json.dumps({'kernels': rows}))
     print_device()
     return 0
 

@@ -115,8 +115,7 @@ def _move(taps, k, r, h0, w0, bias):
     b = taps.shape[0]
     out = torch.empty((b, h0 * k * w0 * k, r), dtype=taps.dtype,
                       device=taps.device)
-    kernels.launch('depth_to_space', 'jmodt_depth_to_space', taps.data_ptr(),
+    kernels.launch('depth_to_space', taps.data_ptr(),
                    None if bias is None else bias.data_ptr(), b, h0, w0, k,
-                   r, _DTYPES[taps.dtype], out.data_ptr(),
-                   device=taps.device)
+                   r, _DTYPES[taps.dtype], out.data_ptr(), device=taps.device)
     return out

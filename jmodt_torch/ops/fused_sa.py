@@ -183,11 +183,10 @@ def grouped_gather_mlp_max(feats1: torch.Tensor, idx: torch.Tensor,
     b_ptrs = (ctypes.c_void_p * _K4_MAX_LAYERS)(
         *[bias.data_ptr() for _, bias in layers])
     dims = (ctypes.c_int * (_K4_MAX_LAYERS + 1))(*widths)
-    kernels.launch('grouped_gather_mlp_max', 'jmodt_grouped_gather_mlp_max',
-                   feats1.data_ptr(), idx.data_ptr(), cxw.data_ptr(),
-                   b1.data_ptr(), b, n, m, s, n_rest, plan.smem,
-                   plan.col_split, w_ptrs, b_ptrs, dims, out.data_ptr(),
-                   device=feats1.device)
+    kernels.launch('grouped_gather_mlp_max', feats1.data_ptr(),
+                   idx.data_ptr(), cxw.data_ptr(), b1.data_ptr(), b, n, m, s,
+                   n_rest, plan.smem, plan.col_split, w_ptrs, b_ptrs, dims,
+                   out.data_ptr(), device=feats1.device)
     return out
 
 

@@ -161,10 +161,9 @@ def ball_query_multi(radii: Sequence[float], nsamples: Sequence[int],
     radii2 = np.array([r * r for r in radii], np.float32)
     ns_arr = np.array(nsamples, np.int32)     # host arrays live past the call
     ptrs = (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs])
-    kernels.launch('ball_query', 'jmodt_ball_query', xyz.data_ptr(),
-                   new_xyz.data_ptr(), b, n, m, len(outs),
-                   radii2.ctypes.data, ns_arr.ctypes.data, plan.warps,
-                   plan.tile, ptrs, device=xyz.device)
+    kernels.launch('ball_query', xyz.data_ptr(), new_xyz.data_ptr(), b, n, m,
+                   len(outs), radii2.ctypes.data, ns_arr.ctypes.data,
+                   plan.warps, plan.tile, ptrs, device=xyz.device)
     return outs
 
 

@@ -107,10 +107,9 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor):
     plan = three_nn_launch_plan(b, n, m)
     dist = torch.empty((b, n, 3), dtype=torch.float32, device=unknown.device)
     idx = torch.empty((b, n, 3), dtype=torch.int32, device=unknown.device)
-    kernels.launch('three_nn', 'jmodt_three_nn', unknown.data_ptr(),
-                   known.data_ptr(), b, n, m, plan.lanes, plan.queries,
-                   plan.threads, dist.data_ptr(), idx.data_ptr(),
-                   device=unknown.device)
+    kernels.launch('three_nn', unknown.data_ptr(), known.data_ptr(), b, n, m,
+                   plan.lanes, plan.queries, plan.threads, dist.data_ptr(),
+                   idx.data_ptr(), device=unknown.device)
     return dist, idx
 
 

@@ -11,6 +11,11 @@ entry returns `cudaGetLastError()`, and
 of their tensors' card and allocate nothing; the wrappers allocate with
 `torch.empty`.
 
+`KERNELS` names each kernel once, by its launch counter: its C entry and
+argtypes, its source, the device symbol a trace or a CUDA graph shows, and
+the JAX function it stands for; the build, `launch`, the graph readers
+(`tools/graph_parity.py`) and chip_smoke.py read it there.
+
 `launches` counts, per kernel name, the launches made through `launch`, so
 a caller can show that a path went through the kernels; a CUDA graph's
 replay calls no wrapper and adds none (its kernels are its graph's kernel
@@ -29,14 +34,12 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 _BUILD = Path(__file__).resolve().parents[2] / 'build'
-_SOURCES = ('fps.cu', 'three_nn.cu', 'grouped_gather_mlp.cu',
-            'sa_level.cu', 'depth_to_space.cu', 'nms.cu', 'tracker.cu',
-            'ball_query.cu')
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-Xcompiler', '-fPIC')
 # flags of one source on top of _NVCC_FLAGS: N1-N3 must round every product
@@ -46,28 +49,74 @@ _FILE_FLAGS = {'nms.cu': ('-fmad=false',), 'tracker.cu': ('-fmad=false',)}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signature of every entry: (argtypes); restype is int (cudaError_t)
-_SIGNATURES = {
-    'jmodt_fps': (_P, _I, _I, _I, _I, _I, _I, _P, _P),
-    'jmodt_fps_max_cluster': (ctypes.POINTER(_I),),
-    'jmodt_fps_batched': (_P, _I, _I, _I, _I, _I, _P, _P),
-    'jmodt_three_nn': (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    'jmodt_grouped_gather_mlp_max': (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _I, _I, ctypes.POINTER(_P),
-                                     ctypes.POINTER(_P), ctypes.POINTER(_I),
-                                     _P, _P),
-    'jmodt_sa_level': (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-                       _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
-                       _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
-                       ctypes.POINTER(_P), _P, _P, _P, _P, _P),
-    'jmodt_depth_to_space': (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
-    'jmodt_ball_query': (_P, _P, _I, _I, _I, _I, _P, _P, _I, _I,
-                         ctypes.POINTER(_P), _P),
-    'jmodt_nms': (_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P),
-    'jmodt_nms_iou': (_P, _P, _I, _I, _P, _P),
-    'jmodt_lap': (_P, _I, _I, _I, _F, _P, _P, _P),
-    'jmodt_kalman_predict': (_P, _P, _P, _P, _I, _I, _P, _P, _P),
+
+
+class Kernel(NamedTuple):
+    """One hand-written kernel, as every layer of the port names it."""
+    entry: str          # its C entry, declared JMODT_API in `source`
+    argtypes: tuple     # the entry's ctypes argtypes, the stream last
+    source: str         # the file of jmodt_torch/csrc/ that defines it
+    symbol: str         # the CUDA function that one launch runs once, as
+                        # a profiler trace and a graph's kernel node name it
+    replaces: str       # the JAX package's function it stands for
+
+
+# every kernel, keyed by its counter (the `launches` key).  K5 ('sa_level')
+# also runs K1's FPS grid; N1 ('nms') also runs its mask grid, and
+# 'nms_iou' is N1's pair IoU alone, to hold it to the plain IoU on the card
+KERNELS = {
+    'fps': Kernel('jmodt_fps', (_P, _I, _I, _I, _I, _I, _I, _P, _P),
+                  'fps.cu', 'fps_cluster_kernel',
+                  'jmodt_tpu/ops/pallas/fps.py:63'),
+    'fps_batched': Kernel('jmodt_fps_batched',
+                          (_P, _I, _I, _I, _I, _I, _P, _P), 'fps.cu',
+                          'fps_batched_kernel',
+                          'jmodt_tpu/ops/pallas/fps.py:134'),
+    'three_nn': Kernel('jmodt_three_nn',
+                       (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+                       'three_nn.cu', 'three_nn_kernel',
+                       'jmodt_tpu/ops/pallas/three_nn.py:52'),
+    'grouped_gather_mlp_max': Kernel(
+        'jmodt_grouped_gather_mlp_max',
+        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_P),
+         ctypes.POINTER(_P), ctypes.POINTER(_I), _P, _P),
+        'grouped_gather_mlp.cu', 'grouped_gather_mlp_max_kernel',
+        'jmodt_tpu/ops/pallas/grouped_gather_mlp.py:90'),
+    'sa_level': Kernel(
+        'jmodt_sa_level',
+        (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+         ctypes.POINTER(_P), ctypes.POINTER(_P), _P, _P, ctypes.POINTER(_P),
+         ctypes.POINTER(_P), ctypes.POINTER(_P), _P, _P, _P, _P, _P),
+        'sa_level.cu', 'sa_consumer_kernel',
+        'jmodt_tpu/ops/pallas/sa_level.py:364'),
+    'depth_to_space': Kernel('jmodt_depth_to_space',
+                             (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+                             'depth_to_space.cu', 'd2s_kernel',
+                             'jmodt_tpu/ops/pallas/depth_to_space.py:87'),
+    # the JAX package's query is plain XLA, no Pallas kernel
+    'ball_query': Kernel('jmodt_ball_query',
+                         (_P, _P, _I, _I, _I, _I, _P, _P, _I, _I,
+                          ctypes.POINTER(_P), _P),
+                         'ball_query.cu', 'ball_query_kernel',
+                         'jmodt_tpu/ops/grouping.py:107'),
+    # the JAX package's device loops, no Pallas kernel either
+    'nms': Kernel('jmodt_nms',
+                  (_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P),
+                  'nms.cu', 'nms_scan_kernel', 'jmodt_tpu/ops/nms.py:38'),
+    'nms_iou': Kernel('jmodt_nms_iou', (_P, _P, _I, _I, _P, _P), 'nms.cu',
+                      'nms_iou_kernel', 'jmodt_tpu/ops/rotated_iou.py:271'),
+    'lap': Kernel('jmodt_lap', (_P, _I, _I, _I, _F, _P, _P, _P),
+                  'tracker.cu', 'lap_kernel',
+                  'jmodt_tpu/tracking/device_tracker.py:183'),
+    'kalman_predict': Kernel('jmodt_kalman_predict',
+                             (_P, _P, _P, _P, _I, _I, _P, _P, _P),
+                             'tracker.cu', 'kalman_predict_kernel',
+                             'jmodt_tpu/tracking/device_tracker.py:129'),
 }
+_SOURCES = tuple(dict.fromkeys(k.source for k in KERNELS.values()))
+# C signature of every entry: (argtypes); restype is int (cudaError_t)
+_SIGNATURES = {'jmodt_fps_max_cluster': (ctypes.POINTER(_I),),
+               **{k.entry: k.argtypes for k in KERNELS.values()}}
 
 launches: collections.Counter = collections.Counter()
 graphs: collections.Counter = collections.Counter()
@@ -141,12 +190,13 @@ def _library() -> ctypes.CDLL:
     return _lib[0]
 
 
-def launch(counter: str, entry: str, *args, device: torch.device) -> None:
-    """Call C entry `entry` on `device`, the card its tensors lie on, and
-    its current stream (appended as the last argument), raise on a CUDA
-    error, and count one launch of `counter`.  The runtime launches on its
-    current device, which need not be `device` where one process drives
-    several cards."""
+def launch(counter: str, *args, device: torch.device) -> None:
+    """Call the C entry of kernel `counter` (`KERNELS`) on `device`, the
+    card its tensors lie on, and its current stream (appended as the last
+    argument), raise on a CUDA error, and count one launch of `counter`.
+    The runtime launches on its current device, which need not be `device`
+    where one process drives several cards."""
+    entry = KERNELS[counter].entry
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream

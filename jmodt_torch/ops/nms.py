@@ -141,10 +141,10 @@ def _nms_kernel(boxes, scores, thresh, max_keep, valid, rotated):
     keep_idx = torch.empty((p, max_keep), dtype=torch.int32, device=dev)
     keep_mask = torch.empty((p, max_keep), dtype=torch.bool, device=dev)
     vals, order = vals.contiguous(), order.contiguous()
-    kernels.launch('nms', 'jmodt_nms', sorted_boxes.data_ptr(),
-                   vals.data_ptr(), order.data_ptr(), p, n, max_keep,
-                   thresh, int(rotated), mask.data_ptr(), keep_idx.data_ptr(),
-                   keep_mask.data_ptr(), device=dev)
+    kernels.launch('nms', sorted_boxes.data_ptr(), vals.data_ptr(),
+                   order.data_ptr(), p, n, max_keep, thresh, int(rotated),
+                   mask.data_ptr(), keep_idx.data_ptr(), keep_mask.data_ptr(),
+                   device=dev)
     return keep_idx, keep_mask
 
 
@@ -156,6 +156,6 @@ def pair_iou(a: torch.Tensor, b: torch.Tensor, rotated: bool = True
     kernels.check_cuda('pair_iou b', b, torch.float32, (a.shape[0], 5))
     out = torch.empty(a.shape[0], dtype=torch.float32, device=a.device)
     ka, kb = kernel_boxes(a), kernel_boxes(b)
-    kernels.launch('nms_iou', 'jmodt_nms_iou', ka.data_ptr(), kb.data_ptr(),
+    kernels.launch('nms_iou', ka.data_ptr(), kb.data_ptr(),
                    a.shape[0], int(rotated), out.data_ptr(), device=a.device)
     return out

@@ -248,7 +248,7 @@ def sa_level_fused(xyz: torch.Tensor, feats: Optional[torch.Tensor],
     ns_arr = np.array(nsamples, np.int32)     # host arrays live past the call
     ptrs = ctypes.c_void_p * nscales
     kernels.launch(
-        'sa_level', 'jmodt_sa_level', xyz.data_ptr(),
+        'sa_level', xyz.data_ptr(),
         None if feats is None else feats.data_ptr(), b, n,
         widths[0][0] - 3, npoint, *plan.fps, plan.chunk, plan.consumers,
         plan.per_sm, nscales, radii2.ctypes.data, ns_arr.ctypes.data,

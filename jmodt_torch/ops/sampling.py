@@ -121,14 +121,12 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     if b > 1 and n <= FPS_WARP_MAX_POINTS:
         warps, _, ppt = fps_batched_launch_plan(b, n)
-        kernels.launch('fps_batched', 'jmodt_fps_batched', xyz.data_ptr(),
-                       b, n, npoint, warps, ppt, out.data_ptr(),
-                       device=xyz.device)
+        kernels.launch('fps_batched', xyz.data_ptr(), b, n, npoint, warps,
+                       ppt, out.data_ptr(), device=xyz.device)
     else:
         csize, threads, ppt = fps_launch_plan(n, kernels.fps_max_cluster())
-        kernels.launch('fps', 'jmodt_fps', xyz.data_ptr(), b, n, npoint,
-                       csize, threads, ppt, out.data_ptr(),
-                       device=xyz.device)
+        kernels.launch('fps', xyz.data_ptr(), b, n, npoint, csize, threads,
+                       ppt, out.data_ptr(), device=xyz.device)
     return out
 
 

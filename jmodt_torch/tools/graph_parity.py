@@ -22,18 +22,13 @@ tracker state and the packed rows, and holds:
   from their kernel nodes through the CUDA driver (`graph_kernels`),
   equal to the eager frame's wrapper launches.
 
-With `time_k5` it also times K5 (csrc/sa_level.cu: the FPS grid and the
-consumer grid it launches with programmatic dependent launch) in both
-runs under torch.profiler: per level, from the FPS grid's start to the
-consumer grid's end, and how many consumer grids started before their FPS
-grid ended.  chip_smoke.py's phase 19, `perfbench/tests/
-test_graphs_on_card.py` and `tests/test_torch_graphs.py` call it.
+chip_smoke.py's phase 19, `perfbench/tests/test_graphs_on_card.py` and
+`tests/test_torch_graphs.py` call it.
 """
 
 from __future__ import annotations
 
 import collections
-import contextlib
 import ctypes
 import re
 import weakref
@@ -59,18 +54,6 @@ def _leaves(x) -> List[tuple]:
             if isinstance(t, torch.Tensor)]
 
 
-# the CUDA function that one launch through each `kernels.launch` counter
-# runs exactly once; K5 ('sa_level') also runs K1's FPS grid
-DEVICE_KERNELS = {
-    'fps': 'fps_cluster_kernel', 'fps_batched': 'fps_batched_kernel',
-    'three_nn': 'three_nn_kernel',
-    'grouped_gather_mlp_max': 'grouped_gather_mlp_max_kernel',
-    'sa_level': 'sa_consumer_kernel', 'depth_to_space': 'd2s_kernel',
-    'nms': 'nms_scan_kernel', 'nms_iou': 'nms_iou_kernel',
-    'lap': 'lap_kernel', 'kalman_predict': 'kalman_predict_kernel',
-    'ball_query': 'ball_query_kernel'}
-
-
 def _names(fn: str, name: str) -> bool:
     """Whether a kernel's name, demangled or mangled (the Itanium ABI
     writes an identifier as its length and itself), is function `fn`."""
@@ -80,10 +63,11 @@ def _names(fn: str, name: str) -> bool:
 
 def launches_of(names) -> Dict[str, int]:
     """{counter: launches} as `kernels.launches` would count them, read
-    from the names of the kernels that ran; counters with none left out."""
+    from the names of the kernels that ran (`kernels.KERNELS`' symbols;
+    K5's launch also runs K1's FPS grid); counters with none left out."""
     seen = collections.Counter(
-        c for name in names for c, fn in DEVICE_KERNELS.items()
-        if _names(fn, name))
+        c for name in names for c, k in kernels.KERNELS.items()
+        if _names(k.symbol, name))
     seen['fps'] -= seen['sa_level']
     return {c: n for c, n in seen.items() if n}
 
@@ -296,39 +280,6 @@ def _sections_replayed(frames, first: int) -> List[str]:
     return out
 
 
-def k5_times(joint, make_state, inputs, eager: bool) -> dict:
-    """K5 under torch.profiler over `inputs` (already warm): per level and
-    frame, ms from its FPS grid's start to its consumer grid's end, and the
-    consumer grids that started before their FPS grid ended."""
-    state = [make_state()]
-
-    def frames():
-        for fid, pts, img, xy in inputs:
-            state[0], _ = joint(state[0], fid, pts, img, xy)
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    ctx = graphs.eager() if eager else contextlib.nullcontext()
-    with ctx, torch.profiler.profile(activities=acts) as prof:
-        frames()
-        torch.cuda.synchronize()
-    ks = sorted((e.time_range.start, e.time_range.end, e.name)
-                for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.is_user_annotation)
-    spans, overlap, fps = [], 0, None
-    for start, end, name in ks:
-        if re.search(r'\bfps_cluster_kernel\b', name):
-            fps = (start, end)
-        elif re.search(r'\bsa_consumer_kernel\b', name) and fps is not None:
-            spans.append((end - fps[0]) / 1e3)
-            overlap += start < fps[1]
-            fps = None
-    per_frame = sum(spans) / max(len(inputs), 1)
-    return {'levels': len(spans), 'ms_per_frame': per_frame,
-            'overlapped': overlap, 'kernels_seen': len(ks)}
-
-
 def frames_of(cfg: Config, n: int, streams: Optional[int], fusion: bool,
               img_hw=None):
     """`n` inputs (frame_id, pts, img, xy) of one stream, or of `streams`
@@ -350,8 +301,8 @@ def frames_of(cfg: Config, n: int, streams: Optional[int], fusion: bool,
 
 
 def check(cfg: Config, n_frames: int, streams: Optional[int], device,
-          tol: float, reset: bool = True, time_k5: bool = False,
-          img_hw=None, joint_kw: Optional[dict] = None) -> dict:
+          tol: float, reset: bool = True, img_hw=None,
+          joint_kw: Optional[dict] = None) -> dict:
     """One configuration's two runs and their comparison (`joint_kw`:
     the joint step's settings, JOINT by default)."""
     fusion = cfg.LI_FUSION.ENABLED
@@ -374,8 +325,4 @@ def check(cfg: Config, n_frames: int, streams: Optional[int], device,
     res['rows_emitted'] = emitted
     if not any(emitted):
         res['failures'].append('no row emitted in any frame')
-    if time_k5:
-        warm = inputs[:2]
-        res['k5_eager'] = k5_times(joint, make_state, warm, eager=True)
-        res['k5_replayed'] = k5_times(joint, make_state, warm, eager=False)
     return res

@@ -183,9 +183,9 @@ def _kalman_predict_kernel(mean, cov, steps, mats: KalmanMats):
     steps = steps.to(torch.int32).expand(mean.shape[:-2]).contiguous()
     q = mats.q.contiguous()
     mean_out, cov_out = torch.empty_like(mean), torch.empty_like(cov)
-    kernels.launch('kalman_predict', 'jmodt_kalman_predict', mean.data_ptr(),
-                   cov.data_ptr(), steps.data_ptr(), q.data_ptr(), s, t,
-                   mean_out.data_ptr(), cov_out.data_ptr(), device=mean.device)
+    kernels.launch('kalman_predict', mean.data_ptr(), cov.data_ptr(),
+                   steps.data_ptr(), q.data_ptr(), s, t, mean_out.data_ptr(),
+                   cov_out.data_ptr(), device=mean.device)
     return mean_out, cov_out
 
 
@@ -298,7 +298,7 @@ def _lap_assign_kernel(affinity: torch.Tensor, match_thresh: float):
     s = aff[..., 0, 0].numel()
     t2d = torch.empty((*lead, t), dtype=torch.int32, device=aff.device)
     d2t = torch.empty((*lead, d), dtype=torch.int32, device=aff.device)
-    kernels.launch('lap', 'jmodt_lap', aff.data_ptr(), s, t, d, match_thresh,
+    kernels.launch('lap', aff.data_ptr(), s, t, d, match_thresh,
                    t2d.data_ptr(), d2t.data_ptr(), device=aff.device)
     return t2d, d2t
 

@@ -286,6 +286,6 @@ def test_ball_query_launches_read_from_kernel_names():
              '(anonymous namespace)::ball_query_kernel(float const*, float '
              'const*, int, int, int, BallScales, int, int)']
     assert graph_parity.launches_of(names) == {'ball_query': 2}
-    for key in graph_parity.DEVICE_KERNELS.values():
-        if key != 'ball_query_kernel':
-            assert key not in 'ball_query_kernel'
+    for k in kernels.KERNELS.values():
+        if k.symbol != 'ball_query_kernel':
+            assert k.symbol not in 'ball_query_kernel'

@@ -391,20 +391,93 @@ def test_kernel_library_name_follows_the_sources():
     assert path == kernels.library_path()
 
 
-def test_chip_smoke_gives_no_result_without_a_card(tmp_path):
+@pytest.mark.parametrize('argv', [[], ['--phase', '18'], ['--phase', '99']],
+                         ids=['all', 'phase-18', 'unknown-phase'])
+def test_chip_smoke_gives_no_result_without_a_card(tmp_path, argv):
+    """Refused (exit 2) without a card, and an unknown phase before the
+    card is asked for."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES='')
-    res = subprocess.run([sys.executable, 'chip_smoke.py'], cwd=ROOT,
+    res = subprocess.run([sys.executable, 'chip_smoke.py', *argv], cwd=ROOT,
                          env=env, capture_output=True, text=True,
                          timeout=120)
-    assert res.returncode != 0
+    assert res.returncode == 2
     assert '"ok"' not in res.stdout
     # alone, without the rest of the repository
     shutil.copy(ROOT / 'chip_smoke.py', tmp_path / 'chip_smoke.py')
-    res = subprocess.run([sys.executable, 'chip_smoke.py'], cwd=tmp_path,
-                         env=env, capture_output=True, text=True,
-                         timeout=120)
+    res = subprocess.run([sys.executable, 'chip_smoke.py', *argv],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def _strings(path: Path):
+    """The string constants of a file's code, docstrings left out."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+def _launch_counters(path: Path):
+    """The counters a file names in `kernels.launch(<counter>, ...)` and
+    `kernels.launches[<counter>]`."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == 'launch' and node.args
+                and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+        if (isinstance(node, ast.Subscript)
+                and isinstance(node.value, ast.Attribute)
+                and node.value.attr == 'launches'
+                and isinstance(node.slice, ast.Constant)):
+            yield node.slice.value
+
+
+def test_kernel_table_holds_against_the_code():
+    """`kernels.KERNELS` names every hand-written kernel once: each
+    record's C entry is declared in its own source and its device symbol
+    defined in the sources, every csrc/*.cu is a record's, every counter
+    the port launches or reads is a record's, and no code string of the
+    port or of chip_smoke.py but the table's names an entry or a symbol
+    (chip_smoke's launch tables have a row for exactly the table's
+    counters, and the kernels its loop recorder spies are gated ones)."""
+    import re
+    csrc = ROOT / 'jmodt_torch' / 'csrc'
+    table = kernels.KERNELS
+    every_source = ''.join(p.read_text() for p in sorted(csrc.iterdir()))
+    for name, k in table.items():
+        src = (csrc / k.source).read_text()
+        assert re.search(rf'JMODT_API\s+int\s+{k.entry}\(', src), name
+        assert re.search(rf'\b{k.symbol}\(', every_source), name
+    assert {p.name for p in csrc.glob('*.cu')} == {k.source
+                                                    for k in table.values()}
+    files = PORT_FILES
+    for path in files:
+        for counter in _launch_counters(path):
+            assert counter in table, f'{path}: launches {counter!r}'
+    names = [n for k in table.values() for n in (k.entry, k.symbol)]
+    assert len(set(names)) == len(names)
+    found = {n: [] for n in names}
+    for path in files:
+        for text in _strings(path):
+            for n in names:
+                if re.search(rf'\b{n}\b', text):
+                    found[n].append((path.name, text))
+    assert all(where == [('kernels.py', n)] for n, where in found.items()), {
+        n: w for n, w in found.items() if w != [('kernels.py', n)]}
+    import chip_smoke
+    import importlib
+    assert chip_smoke.LAUNCHES.keys() == table.keys()
+    gated = {n for n, row in chip_smoke.LAUNCHES.items()
+             if row[:2] != (None, None)}
+    assert set(chip_smoke.LOOP_SPIES) <= gated
+    for mod, attr in chip_smoke.LOOP_SPIES.values():
+        assert callable(getattr(importlib.import_module(mod), attr))
 
 
 def test_synthetic_frame_shapes():
